@@ -1,0 +1,260 @@
+"""Forward surfel compositing over a tile-binned entry list: the CUDA kernel
+`csrc/rasterize_fwd.cu` and its plain PyTorch version (counterpart of
+`g4splat_tpu.ops.rasterize_pallas`).
+
+Kernel B1 replaces `g4splat_tpu/ops/rasterize_pallas.py::_render_kernel`.
+What bounds it on an H100: per (pixel, entry) pair walked it does
+`OPS_PER_PAIR` fp32 operations, against 64 bytes per entry row a tile must
+read and `OUT_BYTES_PER_PIXEL` per pixel written once. A tile needs only the
+entries up to the point where its last pixel saturates, a few hundred in the
+frames measured (PERF.md), so the arithmetic on the pairs walked binds, at
+2.4M splats as at 200k. The design keeps every per-pair operand on chip:
+per-entry terms are computed once per tile batch into shared memory and
+read as broadcasts, each pixel stops at T < 1e-4, and a block-wide vote
+ends the walk of a saturated tile.
+
+`rasterize_entries` dispatches on the tensors' device: on CUDA tensors it
+launches the kernel (or raises), on CPU tensors it runs the plain version.
+There is no fallback from one to the other.
+
+The entry table is (E, 16) float32, one 64-byte row per entry:
+0-8 T (rows Tu, Tv, Tw), 9 opacity (0 for culled splats), 10-12 rgb,
+13-15 view-space normal. The low-pass centre is recomputed from T.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict
+
+import torch
+
+from g4splat_torch.ops.rasterize_common import (
+    FAR_N,
+    NEAR_N,
+    TILE,
+    Preprocessed,
+    alpha_depth,
+    conic_center,
+)
+from g4splat_torch.ops.rasterize_dense import composite
+from g4splat_torch.ops.rasterize_tiled import assemble_tiles
+
+NPIX = TILE * TILE
+ENTRY_F = 16
+# Output channels of the float map, in the kernel's order.
+OUT_C = 13
+CH_COLOR, CH_NORMAL = slice(0, 3), slice(3, 6)
+CH_DEPTH, CH_ALPHA, CH_DIST, CH_MEDIAN, CH_FINAL_T, CH_M1, CH_M2 = range(6, 13)
+# fp32 operations per (pixel, entry) pair walked: 3 affine planes (12), the
+# |p2| test (1), reciprocal (1), su/sv (2), rho3d (3), dx/dy (2), rho2d (4),
+# min/select (2), z (4), exp argument and exp (2), alpha (2) — the cost of
+# every pair walked, contributors or not; a contributor's composite update
+# adds a further ~20.
+OPS_PER_PAIR = 35
+OUT_BYTES_PER_PIXEL = OUT_C * 4 + 4
+
+
+@dataclass
+class KernelInfo:
+    """A hand-written kernel and the count of its launches (incremented by
+    its wrapper at each launch, and nowhere else)."""
+    name: str
+    source: str     # path in the repository
+    replaces: str   # file:line of the TPU kernel it replaces
+    launches: int = 0
+
+
+RASTERIZE_FWD = KernelInfo(
+    name="rasterize_fwd",
+    source="g4splat_torch/csrc/rasterize_fwd.cu",
+    replaces="g4splat_tpu/ops/rasterize_pallas.py:135",
+)
+
+
+def pack_entries(prep: Preprocessed, gauss_id: torch.Tensor) -> torch.Tensor:
+    """Gather per-entry features into the (E, 16) entry table (one row gather
+    from a per-splat table; culled splats carry zero opacity)."""
+    P = prep.depth.shape[0]
+    opa = torch.where(prep.valid, prep.opacity, 0.0)
+    table = torch.cat([prep.T.reshape(P, 9), opa[:, None], prep.rgb, prep.normal], 1)
+    return table.to(torch.float32)[gauss_id.long()].contiguous()
+
+
+def _maps(out: torch.Tensor, n_contrib: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return dict(
+        color=out[..., CH_COLOR], normal=out[..., CH_NORMAL],
+        depth_acc=out[..., CH_DEPTH], alpha=out[..., CH_ALPHA],
+        distortion=out[..., CH_DIST], median_depth=out[..., CH_MEDIAN],
+        final_T=out[..., CH_FINAL_T], m1_tot=out[..., CH_M1],
+        m2_tot=out[..., CH_M2], n_contrib=n_contrib,
+    )
+
+
+def _check_inputs(entries, tile_start, tile_count, bg, width, height):
+    n_tiles = ((width + TILE - 1) // TILE) * ((height + TILE - 1) // TILE)
+    if entries.dtype != torch.float32 or entries.ndim != 2 or entries.shape[1] != ENTRY_F:
+        raise ValueError(f"entries must be (E, {ENTRY_F}) float32, got "
+                         f"{tuple(entries.shape)} {entries.dtype}")
+    for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
+        if t.dtype != torch.int32 or t.shape != (n_tiles,):
+            raise ValueError(f"{name} must be ({n_tiles},) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if bg.shape != (3,):
+        raise ValueError(f"bg must be (3,), got {tuple(bg.shape)}")
+    devs = {t.device for t in (entries, tile_start, tile_count, bg)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on different devices: {devs}")
+
+
+def rasterize_entries(entries: torch.Tensor, tile_start: torch.Tensor,
+                      tile_count: torch.Tensor, bg: torch.Tensor, width: int,
+                      height: int, near: float = NEAR_N, far: float = FAR_N,
+                      want_aux: bool = True, want_dist: bool = True
+                      ) -> Dict[str, torch.Tensor]:
+    """Composite every tile's [start, start+count) entry range front to back.
+
+    Returns (H, W[, C]) maps: color (bg added), normal, depth_acc, alpha,
+    distortion, median_depth, final_T, n_contrib (int32), m1_tot, m2_tot.
+    With want_aux=False, distortion, n_contrib and the moments are zeros;
+    with want_dist=False, distortion and the moments are zeros.
+    """
+    _check_inputs(entries, tile_start, tile_count, bg, width, height)
+    if entries.device.type == "cpu":
+        maps = rasterize_entries_plain(entries, tile_start, tile_count, bg, width,
+                                       height, near, far, want_aux, want_dist)
+        maps.pop("n_walked")
+        return maps
+    if entries.device.type != "cuda":
+        raise ValueError(f"unsupported device {entries.device}")
+    return _rasterize_entries_cuda(entries, tile_start, tile_count, bg, width,
+                                   height, near, far, want_aux, want_dist)
+
+
+def _rasterize_entries_cuda(entries, tile_start, tile_count, bg, width, height,
+                            near, far, want_aux, want_dist):
+    from g4splat_torch.ops.cuda_build import load
+
+    lib = load("rasterize_fwd")
+    fn = lib.g4_rasterize_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = entries.device
+    entries = entries.contiguous()
+    tile_start = tile_start.contiguous()
+    tile_count = tile_count.contiguous()
+    bg = bg.to(torch.float32).contiguous()
+    out = torch.empty((height, width, OUT_C), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(entries.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+                 bg.data_ptr(), int(width), int(height), float(near), float(far),
+                 int(bool(want_aux)), int(bool(want_aux and want_dist)),
+                 out.data_ptr(), n_contrib.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rasterize_fwd launch failed: CUDA error {err}")
+    RASTERIZE_FWD.launches += 1
+    return _maps(out, n_contrib)
+
+
+def rasterize_entries_plain(entries: torch.Tensor, tile_start: torch.Tensor,
+                            tile_count: torch.Tensor, bg: torch.Tensor,
+                            width: int, height: int, near: float = NEAR_N,
+                            far: float = FAR_N, want_aux: bool = True,
+                            want_dist: bool = True, chunk: int = 256,
+                            max_elems: int = 1 << 21) -> Dict[str, torch.Tensor]:
+    """The kernel's function in plain PyTorch, with the same inputs and
+    outputs, on any device.
+
+    Tiles are walked in batches, densest first, so similar ranges share a
+    batch; each batch walks its ranges in chunks of `chunk` entries through
+    the dense oracle's `alpha_depth` and `composite`, carrying T and the
+    moment sums between chunks. A (batch, chunk, 256) intermediate holds at
+    most `max_elems` elements, so memory stays bounded however deep a tile
+    is; a batch stops once all its pixels are saturated. Besides the
+    kernel's maps it returns `n_walked`, the number of entries each pixel had
+    to evaluate (up to and including the one that stops it), which counts
+    the kernel's work.
+    """
+    dev = entries.device
+    gx = (width + TILE - 1) // TILE
+    n_tiles = gx * ((height + TILE - 1) // TILE)
+    E = entries.shape[0]
+    entries = entries.to(torch.float32)
+    T_all = entries[:, :9].reshape(E, 3, 3)
+    center_all, _, ok = conic_center(T_all)
+    center_all = torch.where(ok[:, None], center_all, 0.0)   # as the kernel's
+    no_bg = torch.zeros(3, device=dev)
+    out = torch.zeros((n_tiles, NPIX, OUT_C), dtype=torch.float32, device=dev)
+    n_contrib = torch.zeros((n_tiles, NPIX), dtype=torch.int32, device=dev)
+    n_walked = torch.zeros((n_tiles, NPIX), dtype=torch.int32, device=dev)
+    lin = torch.arange(NPIX, device=dev)
+    lx = (lin % TILE).to(torch.float32)
+    ly = (lin // TILE).to(torch.float32)
+    ks = torch.arange(chunk, device=dev)
+    order = torch.argsort(tile_count, descending=True, stable=True)
+    tb = max(1, max_elems // (NPIX * chunk))
+
+    for b0 in range(0, n_tiles, tb):
+        t = order[b0:b0 + tb]
+        nb = t.shape[0]
+        cnt = tile_count[t].long()
+        st = tile_start[t].long()
+        px = ((t % gx) * TILE)[:, None] + lx                  # (nb, 256)
+        py = ((t // gx) * TILE)[:, None] + ly
+        done = (px >= width) | (py >= height)
+        T = torch.ones((nb, NPIX), device=dev)
+        color = torch.zeros((nb, NPIX, 3), device=dev)
+        normal = torch.zeros((nb, NPIX, 3), device=dev)
+        depth_acc, median, dist, M1, M2 = (torch.zeros((nb, NPIX), device=dev)
+                                           for _ in range(5))
+        last = torch.zeros((nb, NPIX), dtype=torch.long, device=dev)
+        walked = torch.zeros((nb, NPIX), dtype=torch.long, device=dev)
+        for c0 in range(0, int(cnt.max()) if nb else 0, chunk):
+            if bool(done.all()):
+                break
+            n_in = torch.clamp(cnt - c0, 0, chunk)[:, None]      # (nb, 1)
+            idx = torch.clamp(st[:, None] + c0 + ks, max=E - 1)  # (nb, chunk)
+            g = entries[idx]
+            alpha, z = alpha_depth(T_all[idx], center_all[idx], g[..., 9],
+                                   ks < n_in, px, py, near)       # (nb, chunk, 256)
+            alpha = torch.where(done[:, None, :], 0.0, alpha)
+            c = composite(alpha, z, g[..., 10:13], g[..., 13:16], no_bg, near=near,
+                          far=far, carry=(T, M1, M2))
+            walked += torch.where(done, 0, torch.minimum(c.stop_at + 1, n_in))
+            color += c.color
+            normal += c.normal
+            depth_acc += c.depth_acc
+            dist += c.distortion
+            # A chunk holds a median candidate iff it has a contributor and
+            # the T entering it (its first contributor's) is still > 0.5.
+            median = torch.where((T > 0.5) & (c.n_contrib > 0), c.median_depth, median)
+            last = torch.where(c.n_contrib > 0, c0 + c.n_contrib, last)
+            T, M1, M2 = c.final_T, c.m1_tot, c.m2_tot
+            done = done | (c.stop_at < chunk)
+
+        dist_on = want_aux and want_dist
+        res = out[t]
+        res[..., CH_COLOR] = color + T[..., None] * bg.to(torch.float32)
+        res[..., CH_NORMAL] = normal
+        res[..., CH_DEPTH] = depth_acc
+        res[..., CH_ALPHA] = 1.0 - T
+        res[..., CH_DIST] = dist if dist_on else 0.0
+        res[..., CH_MEDIAN] = median
+        res[..., CH_FINAL_T] = T
+        res[..., CH_M1] = M1 if dist_on else 0.0
+        res[..., CH_M2] = M2 if dist_on else 0.0
+        out[t] = res
+        n_contrib[t] = last.to(torch.int32) if want_aux else 0
+        n_walked[t] = walked.to(torch.int32)
+
+    maps = _maps(assemble_tiles(out, width, height),
+                 assemble_tiles(n_contrib, width, height))
+    maps["n_walked"] = assemble_tiles(n_walked, width, height)
+    return maps
