@@ -1,5 +1,6 @@
-"""Drive the g4splat_torch render path on one NVIDIA GPU and hold its CUDA
-kernel against the kernel's plain PyTorch version.
+"""Drive the g4splat_torch render and training paths on one NVIDIA GPU and
+hold their CUDA kernels (B1 forward, B2 backward) against the kernels'
+plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -7,17 +8,35 @@ Run from the repository root, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
   1. device, toolkit and card (TF32 turned off for matmul and cuDNN);
-  2. build every kernel from g4splat_torch/csrc (prints nvcc -Xptxas -v);
-  3. kernel vs plain version in all three modes on the 8k-splat "spread" and
-     "deep-overlap" scenes at 256x192 (fx = fy = 220), and on the spread
-     scene seen from close by, where the distortion map is large;
-  4. the main path: a 200k-splat scene at SH degree 3, written to PLY and
-     read back, rendered by render(backend="cuda") from 8 orbit cameras at
-     768x576 with need_aux=False and again with compute_distortion=False;
-     the kernel's launch count must rise by exactly 16;
-  5. one frame of a 2.4M-splat scene at 512x384 in all three modes;
-  6. timings: the kernel, the whole render() and its stages, the plain
-     version, the kernel's bound, peak memory.
+  2. build every kernel from g4splat_torch/csrc, one nvcc per source, all
+     started together (prints nvcc -Xptxas -v);
+  3. B1 vs its plain version in all three modes, and B2 vs its plain
+     version in both modes (B1's saved aux, seeded random cotangents), on
+     the 8k-splat "spread" and "deep-overlap" scenes at 256x192
+     (fx = fy = 220), and on the spread scene seen from close by, where the
+     distortion map is large;
+  4. the render main path: a 200k-splat scene at SH degree 3, written to PLY
+     and read back, rendered by render(backend="cuda") from 8 orbit cameras
+     at 768x576 with need_aux=False and again with compute_distortion=False;
+     B1's launch count must rise by exactly 16;
+  5. one frame of a 2.4M-splat scene at 512x384: B1 in all three modes and
+     B2 in both, against their plain versions;
+  6. render timings: B1, the whole render() and its stages, the plain
+     version, B1's bound, peak memory;
+  7. whole-chain gradients: render(backend="cuda") (B1 + B2 in one autograd
+     Function) against render(backend="tiled") (PyTorch autograd) on a small
+     scene, every scene parameter and the screen-space offset; B1 and B2 rise
+     by exactly one per backward;
+  8. the training main path: 5 views at 512x384 rendered by B1 from a seeded
+     1.2M-splat scene, a jittered grey init in a 2.4M-slot buffer, SH 3,
+     TrainConfig's production defaults; 30 Trainer.step() calls with a
+     densify window (densify at 10, 20, 30), then 5 with lambda_dist > 0;
+     finite losses, loss down and PSNR up over the view cycle, and exactly
+     one B1 and one B2 launch per step;
+  9. training timings: the median step and its split (forward render,
+     losses, backward, Adam, densify); B2 vs its plain version, and its time
+     beside its bound and the plain version's, at the training shape (the
+     first step's scene); peak memory.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
@@ -42,17 +61,35 @@ FP32_OPS_PER_S = 67e12          # H100 SXM fp32 peak outside the tensor cores
 MAP_TOL = 1e-3
 ABS_FLOOR = 1e-6
 FLIP_FRAC = 1e-3
+# B2 vs its plain version: ||kernel - plain|| / ||plain|| per gradient group
+# (dT, d_center, d_opacity, d_rgb, d_normal), the JAX package's Pallas gate
+# (scripts/check_pallas.py). Atomics add in another order on every run, and a
+# contributor or median decision flipped by fused multiply-adds moves a whole
+# entry's share of the gradient.
+GRAD_TOL = 2e-2
+# render(backend="cuda") gradients vs render(backend="tiled") (autograd).
+CHAIN_TOL = 1e-2
 DEVICE = "cuda"
-# (splats, width, height) of phases 3, 4 and 5.
+# (splats, width, height) of phases 3, 4, 5 and 7.
 CHECK_SHAPE = (8000, 256, 192)
 MAIN_SHAPE = (200_000, 768, 576)
 BIG_SHAPE = (2_400_000, 512, 384)
+CHAIN_SHAPE = (3000, 160, 120)
+# Phase 8: (live splats, capacity, width, height, views, steps, steps with
+# distortion). Capacity is the orchestrator's rule max(2n, n + 1024).
+TRAIN_SHAPE = (1_200_000, 2_400_000, 512, 384, 5, 30, 5)
+# The plain backward's (tiles, chunk, 256) working set on the card.
+PLAIN_BWD_ELEMS = 1 << 22
 MODES = {"infer": (False, True), "nodist": (True, False), "full": (True, True)}
 FLOAT_MAPS = ("color", "normal", "depth_acc", "alpha", "distortion", "final_T",
               "m1_tot", "m2_tot")
+GRAD_GROUPS = {"dT": slice(0, 9), "d_center": slice(9, 11), "d_opacity": slice(11, 12),
+               "d_rgb": slice(12, 15), "d_normal": slice(15, 18)}
+PARAMS = ("xyz", "scaling_raw", "rotation_raw", "opacity_raw", "f_dc", "f_rest")
 
 failures = []
 max_abs_err = 0.0
+max_abs_err_bwd = 0.0
 
 
 def check(ok, what):
@@ -68,14 +105,10 @@ def run(cmd):
         return f"unavailable ({e})"
 
 
-def build_scene(n, seed, spread=3.0, wall=True, opacity=0.8, log_scale=(-4.5, -3.0),
-                sh_degree=0):
+def scene_arrays(n, seed, spread=3.0, wall=True, log_scale=(-4.5, -3.0)):
     """bench.py's room-like shell (walls/floor plus clutter), or with
-    wall=False the uniform cube of scripts/check_pallas.py."""
-    import torch
-
-    from g4splat_torch.models.gaussians import GaussianScene
-
+    wall=False the uniform cube of scripts/check_pallas.py, as numpy arrays
+    (xyz, colours, scales, quaternions)."""
     rng = np.random.RandomState(seed)
     xyz = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
     if wall:
@@ -83,6 +116,16 @@ def build_scene(n, seed, spread=3.0, wall=True, opacity=0.8, log_scale=(-4.5, -3
     cols = rng.rand(n, 3).astype(np.float32)
     scales = np.exp(rng.uniform(*log_scale, n)).astype(np.float32)
     quats = rng.randn(n, 4).astype(np.float32)
+    return xyz, cols, scales, quats
+
+
+def build_scene(n, seed, spread=3.0, wall=True, opacity=0.8, log_scale=(-4.5, -3.0),
+                sh_degree=0):
+    import torch
+
+    from g4splat_torch.models.gaussians import GaussianScene
+
+    xyz, cols, scales, quats = scene_arrays(n, seed, spread, wall, log_scale)
     scene = GaussianScene.from_points(xyz, cols, scales=scales, quats=quats,
                                       initial_opacity=opacity, device=DEVICE)
     if sh_degree:
@@ -271,6 +314,217 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
     return float(np.median(totals))
 
 
+def bwd_inputs(b, entries, w, h, want_dist, seed):
+    """B1's saved aux (the kernel in mode want_aux=True) and a seeded random
+    cotangent image, as the autograd Function hands them to B2."""
+    import torch
+
+    from g4splat_torch.ops.rasterize_cuda import rasterize_entries
+    from g4splat_torch.ops.rasterize_cuda_bwd import COT_C
+
+    bg = torch.tensor([0.05, 0.1, 0.15], device=DEVICE)
+    maps = rasterize_entries(entries, b.tile_start, b.tile_count, bg, w, h,
+                             want_aux=True, want_dist=want_dist)
+    aux = torch.stack([maps["final_T"], maps["n_contrib"].to(torch.float32),
+                       maps["m1_tot"], maps["m2_tot"]], -1)
+    cot = np.random.RandomState(seed).randn(h, w, COT_C).astype(np.float32)
+    cot[..., 10:] = 0.0
+    return (entries, b.gauss_id, b.tile_start, b.tile_count, aux,
+            torch.from_numpy(cot).to(DEVICE), bg, w, h)
+
+
+def bwd_vs_plain(tag, b, entries, w, h, n_splats, seed=0):
+    """B2 and its plain version on the same card tensors, in both modes.
+    Returns {want_dist: (kernel args, the plain version's work stats)}."""
+    global max_abs_err_bwd
+    import torch
+
+    from g4splat_torch.ops.rasterize_cuda_bwd import (
+        rasterize_backward,
+        rasterize_backward_plain,
+    )
+
+    runs = {}
+    for want_dist in (False, True):
+        args = bwd_inputs(b, entries, w, h, want_dist, seed) + (n_splats,)
+        got = rasterize_backward(*args, want_dist=want_dist)
+        stats = {}
+        ref = rasterize_backward_plain(*args, want_dist=want_dist,
+                                       max_elems=PLAIN_BWD_ELEMS, stats=stats)
+        torch.cuda.synchronize()
+        max_abs_err_bwd = max(max_abs_err_bwd, float((got - ref).abs().max()))
+        errs = []
+        for name, sl in GRAD_GROUPS.items():
+            norm = float(ref[:, sl].norm())
+            r = float((got[:, sl] - ref[:, sl]).norm()) / max(norm, 1e-30)
+            errs.append(f"{name} {r:.2e} (|plain| {norm:.2e})")
+            check(norm > 0 and r <= GRAD_TOL,
+                  f"{tag} B2 [{'full' if want_dist else 'nodist'}] {name}: "
+                  f"||kernel - plain|| / ||plain|| = {r:.2e} <= {GRAD_TOL}, ||plain|| > 0")
+        print(f"      {'; '.join(errs)}; max|d| {float((got - ref).abs().max()):.2e}; "
+              f"pairs {stats['pairs']}, contributors {stats['contributors']}, "
+              f"rows walked {stats['rows']}, splats {stats['splats']}")
+        runs[want_dist] = (args, stats)
+    return runs
+
+
+def bwd_bound(stats, w, h, n_tiles, want_dist):
+    """Least time for B2's work on this run's data: the entry rows (and ids)
+    the tiles walk, the tile ranges, aux, cotangents and bg read once and the
+    touched splats' gradient rows read-modified-written, against the fp32
+    operations on the pairs walked and the contributors. Returns
+    (ms, 'bytes' | 'operations')."""
+    from g4splat_torch.ops.rasterize_cuda import ENTRY_F
+    from g4splat_torch.ops.rasterize_cuda_bwd import (
+        AUX_C,
+        COT_C,
+        GRAD_F,
+        OPS_PER_CONTRIB_BWD,
+        OPS_PER_CONTRIB_DIST,
+        OPS_PER_PAIR_BWD,
+    )
+
+    nbytes = (stats["rows"] * (ENTRY_F * 4 + 4) + n_tiles * 8 + w * h * (AUX_C + COT_C) * 4
+              + 12 + stats["splats"] * GRAD_F * 4 * 2)
+    ops = stats["pairs"] * OPS_PER_PAIR_BWD + stats["contributors"] * (
+        OPS_PER_CONTRIB_BWD + (OPS_PER_CONTRIB_DIST if want_dist else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_gradients():
+    """render(backend="cuda") vs render(backend="tiled") gradients on the
+    card, every scene parameter and the screen-space offset; B1 and B2 each
+    launch once per cuda backward."""
+    import torch
+
+    from g4splat_torch.core.cameras import lookat_camera
+    from g4splat_torch.ops import rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.ops.rasterize_common import RenderConfig
+
+    n, w, h = CHAIN_SHAPE
+    scene = build_scene(n, 5, spread=1.0, wall=False, opacity=0.6, log_scale=(-3.5, -2.2),
+                        sh_degree=3)
+    cam = lookat_camera([0, 0, -3.0], [0, 0, 0], [0, -1, 0], fx=120.0, fy=120.0,
+                        width=w, height=h, device=DEVICE)
+    for dist in (False, True):
+        cfg = RenderConfig(bg=(0.05, 0.1, 0.15), compute_distortion=dist, tile_k=4096)
+        keys = ("render", "rend_alpha", "rend_normal", "rend_depth", "depth_median",
+                "surf_normal") + (("rend_dist",) if dist else ())
+        weights, grads = {}, {}
+        for backend in ("tiled", "cuda"):
+            params = {k: getattr(scene, k).clone().requires_grad_(True) for k in PARAMS}
+            off = torch.zeros((n, 2), device=DEVICE, requires_grad=True)
+            before = (rasterize_cuda.RASTERIZE_FWD.launches,
+                      rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+            out = render(cam, scene.replace(**params), cfg, center_offset=off, backend=backend)
+            for k in keys:
+                gen = torch.Generator(device=DEVICE).manual_seed(len(weights))
+                weights.setdefault(k, torch.randn(out[k].shape, device=DEVICE, generator=gen))
+            sum((out[k] * weights[k]).sum() for k in keys).backward()
+            torch.cuda.synchronize()
+            after = (rasterize_cuda.RASTERIZE_FWD.launches,
+                     rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+            if backend == "cuda":
+                check(after == (before[0] + 1, before[1] + 1),
+                      f"cuda backward launched B1 {after[0] - before[0]} and B2 "
+                      f"{after[1] - before[1]} times (1 and 1 expected)")
+            else:
+                check(after == before, "tiled backward launched no kernel")
+            grads[backend] = {**{k: p.grad for k, p in params.items()},
+                              "center_offset": off.grad}
+        line = []
+        for k, ref in grads["tiled"].items():
+            r = float((grads["cuda"][k] - ref).norm() / ref.norm())
+            line.append(f"{k} {r:.2e}")
+            check(float(ref.norm()) > 0 and r <= CHAIN_TOL,
+                  f"chain [{'full' if dist else 'nodist'}] {k}: ||cuda - tiled|| / "
+                  f"||tiled|| = {r:.2e} <= {CHAIN_TOL}")
+        print(f"      [{'full' if dist else 'nodist'}] " + "; ".join(line))
+
+
+def training_data(n_live, capacity, w, h, n_views):
+    """tests/test_train.py's synthetic problem at full width: a seeded
+    room-like scene (SH 3) rendered by B1 from `n_views` cameras gives the
+    images and the depth/normal priors; the init is the same points jittered
+    with grey colours, in a `capacity`-slot buffer."""
+    import torch
+
+    from g4splat_torch.core.cameras import lookat_camera, stack_cameras
+    from g4splat_torch.models.gaussians import GaussianScene
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.train.trainer import ViewData
+
+    xyz, cols, scales, quats = scene_arrays(n_live, 11)
+    gt = GaussianScene.from_points(xyz, cols, scales=scales, quats=quats,
+                                   initial_opacity=0.8, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    gt = gt.replace(f_rest=0.05 * torch.randn(gt.f_rest.shape, generator=gen, device=DEVICE),
+                    active_sh_degree=3)
+    cams = [lookat_camera([6.5 * np.sin(a), -0.8, -6.5 * np.cos(a)], [0, 0, 0], [0, -1, 0],
+                          fx=600.0 * w / 768, fy=600.0 * w / 768, width=w, height=h,
+                          device=DEVICE)
+            for a in (np.arange(n_views) - n_views // 2) * 0.2]
+    with torch.no_grad():
+        outs = [render(c, gt, backend="cuda") for c in cams]
+    views = ViewData(
+        image=torch.stack([o["render"] for o in outs]),
+        prior_depth=torch.stack([o["surf_depth"] for o in outs]),
+        prior_normal=torch.stack([o["rend_normal"] for o in outs]),
+        prior_curv=torch.zeros((n_views, h, w), device=DEVICE),
+        confidence=torch.ones((n_views, h, w), device=DEVICE),
+        color_weight=torch.ones(n_views, device=DEVICE),
+        scale_factor=torch.tensor(10.0, device=DEVICE))
+    rng = np.random.RandomState(13)
+    init = GaussianScene.from_points(
+        xyz + 0.03 * rng.randn(*xyz.shape).astype(np.float32),
+        np.full((n_live, 3), 0.5, np.float32), capacity=capacity, scales=scales,
+        quats=quats, initial_opacity=0.5, device=DEVICE)
+    return init.replace(active_sh_degree=3), stack_cameras(cams), views
+
+
+def timed_step(trainer, events=True):
+    """One training step run stage by stage with the functions train_step
+    calls (render and the losses, backward, Adam with the stat accumulation),
+    each timed by CUDA events from the end of the one before. Returns
+    {stage: ms}."""
+    import torch
+
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.ops.rasterize_common import RenderConfig
+    from g4splat_torch.train.densify import accumulate_stats
+    from g4splat_torch.train.trainer import adam_step, losses_from_render
+
+    cfg = trainer.cfg
+    trainer.iteration += 1
+    it = trainer.iteration
+    cam, view = trainer._view_slice(trainer._next_view())
+    scene = trainer.scene
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    offset = torch.zeros((scene.capacity, 2), device=DEVICE, requires_grad=True)
+    out = render(cam, scene, RenderConfig(bg=(0.0, 0.0, 0.0), depth_ratio=cfg.depth_ratio,
+                                          compute_distortion=cfg.lambda_dist != 0.0,
+                                          max_tiles_per_splat=cfg.raster_max_tiles_per_splat),
+                 center_offset=offset, backend=cfg.backend)
+    ev[1].record()
+    loss, aux = losses_from_render(scene, out, view, cfg, it, generator=trainer.generator)
+    ev[2].record()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    ev[3].record()
+    adam_step(trainer.optimizer, cfg)
+    trainer.dstate = accumulate_stats(trainer.dstate, offset.grad, aux["radii"],
+                                      aux["visibility"])
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("forward render", "losses", "backward", "Adam + stats")
+    return {k: a.elapsed_time(b) for k, a, b in zip(names, ev, ev[1:])}
+
+
 def main():
     import torch
 
@@ -280,11 +534,12 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     try:
-        from g4splat_torch.ops import cuda_build, rasterize_cuda
+        from g4splat_torch.ops import cuda_build, rasterize_cuda, rasterize_cuda_bwd
         from g4splat_torch.core.cameras import lookat_camera
         from g4splat_torch.io.ply import load_gaussian_ply, save_gaussian_ply
         from g4splat_torch.ops.rasterize import render
         from g4splat_torch.ops.rasterize_common import RenderConfig
+        from g4splat_torch.train.trainer import Trainer, TrainConfig, camera_at
     except ImportError as e:
         print(f"chip_smoke: cannot import g4splat_torch next to this script: {e}",
               file=sys.stderr)
@@ -314,10 +569,12 @@ def main():
                 print(f"  [{name}] {line.strip()}")
 
     n3, w3, h3 = CHECK_SHAPE
-    print(f"== phase 3: kernel vs plain version, {n3} splats at {w3}x{h3}")
-    print(f"  tolerance: a float map's pixel agrees when |kernel - plain| <= "
+    print(f"== phase 3: kernels vs plain versions, {n3} splats at {w3}x{h3}")
+    print(f"  B1 tolerance: a float map's pixel agrees when |kernel - plain| <= "
           f"{MAP_TOL} * max|plain map| (at least {ABS_FLOOR}); every map's "
           f"disagreeing pixels, and n_contrib's, < {FLIP_FRAC} of the image")
+    print(f"  B2 tolerance: ||kernel - plain|| / ||plain|| <= {GRAD_TOL} in every "
+          f"gradient group, ||plain|| > 0")
     # "near" is the spread scene seen from close by (depths 0.6-4.6, as from a
     # camera inside a room): its distortion stands well above fp32 noise.
     for tag, spread, seed, cam_z in (("spread", 2.0, 1, -5.5), ("deep-overlap", 0.35, 3, -5.5),
@@ -331,6 +588,7 @@ def main():
             print(f"  {tag}: {entries.shape[0]} entries, densest tile "
                   f"{int(b.tile_count.max())}")
             _, seen = kernel_vs_plain(tag, b, entries, w3, h3)
+            bwd_vs_plain(tag, b, entries, w3, h3, scene.capacity)
             cpu = render(cam3.to("cpu"), scene.to("cpu"), backend="cuda")
             gpu = render(cam3, scene, backend="cuda")
         check(int(cpu["n_dropped"]) == int(gpu["n_dropped"]),
@@ -389,6 +647,7 @@ def main():
         b5, e5 = kernel_inputs(cam5, big)
         print(f"  {e5.shape[0]} entries, densest tile {int(b5.tile_count.max())}")
         work5, _ = kernel_vs_plain("production", b5, e5, w5, h5)
+        bwd_vs_plain("production", b5, e5, w5, h5, big.capacity)
         out5 = {m: render(cam5, big, RenderConfig(compute_distortion=d), backend="cuda",
                           need_aux=a) for m, (a, d) in MODES.items()}
     check(all(bool(torch.isfinite(v).all()) for o in out5.values() for v in o.values()
@@ -406,20 +665,155 @@ def main():
             time_render(f"{tag5} [{mode}]", cam5, big,
                         RenderConfig(compute_distortion=d), a, reps=3)
     print("  library_ms: none (no single PyTorch call computes this function)")
+    del big, b5, e5, out5
+
+    nc, wc, hc = CHAIN_SHAPE
+    print(f"== phase 7: whole-chain gradients, cuda vs tiled backend, {nc} splats, SH 3, "
+          f"{wc}x{hc}; tolerance ||cuda - tiled|| / ||tiled|| <= {CHAIN_TOL}")
+    chain_gradients()
+
+    n_live, cap, w8, h8, n_views, n_steps, n_dist = TRAIN_SHAPE
+    print(f"== phase 8: training main path, {n_live} live splats in {cap} slots, SH 3, "
+          f"{n_views} views at {w8}x{h8}, {n_steps} + {n_dist} steps")
+    torch.cuda.reset_peak_memory_stats()
+    init, cams8, views8 = training_data(n_live, cap, w8, h8, n_views)
+    # On this scene the screen-space gradient statistic stays below 1e-5 over
+    # these steps (its 99.9 % quantile near 1e-6), far under the default 2e-4,
+    # so the threshold is cut to 2e-7 to make densify clone and split on the
+    # card; max_capacity keeps the buffer at its 2.4M slots (candidates past
+    # the free slots are dropped and counted).
+    cfg8 = TrainConfig(densify_from_iter=5, densification_interval=10,
+                       densify_until_iter=n_steps + 1, normal_consistency_from=0,
+                       densify_grad_threshold=2e-7, max_capacity=cap)
+    print(f"  TrainConfig defaults (chart priors, per-pixel depth order, mip filter, "
+          f"anisotropy, lambda_dist 0, backend {cfg8.backend!r}) except: densify "
+          f"statistics from step 5, densify at 10, 20, 30 with grad threshold 2e-7, "
+          f"max_capacity {cap}, normal consistency from 0; then lambda_dist 100 from "
+          f"step {n_steps + 1} (distortion_from 0)")
+    trainer = Trainer(init, cams8, views8, cfg8, seed=0)
+    del init
+    # B2's inputs for phase 9: the first step's scene (mip filter applied)
+    # from view 0. The state after training depends on the run (atomics), so
+    # the gated comparison reads this one.
+    with torch.no_grad():
+        b8, e8 = kernel_inputs(camera_at(cams8, 0), trainer.scene)
+    torch.cuda.synchronize()
+    rasterize_cuda.RASTERIZE_FWD.launches = 0
+    rasterize_cuda_bwd.RASTERIZE_BWD.launches = 0
+    hist, step_ms, per_step = [], [], set()
+    for i in range(n_steps + n_dist):
+        if i == n_steps:
+            trainer.cfg = trainer.cfg.replace(lambda_dist=100.0, distortion_from=0)
+        it = trainer.iteration + 1
+        densifies = it % cfg8.densification_interval == 0 and it < cfg8.densify_until_iter
+        alive = int(trainer.scene.num_alive) if densifies else None
+        if densifies:
+            d = trainer.dstate
+            g = (d.grad_accum / torch.clamp(d.denom, min=1.0))[trainer.scene.alive]
+            q = torch.quantile(g[torch.randperm(g.numel(), device=g.device)[:1 << 20]],
+                               torch.tensor([0.5, 0.9, 0.99, 0.999], device=g.device))
+            print(f"  step {it}: screen-gradient statistic before this step, quantiles "
+                  f"50/90/99/99.9 % " + " ".join(f"{float(v):.2e}" for v in q)
+                  + f", max {float(g.max()):.2e}")
+        before = (rasterize_cuda.RASTERIZE_FWD.launches,
+                  rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step()
+        torch.cuda.synchronize()
+        step_ms.append(((time.perf_counter() - t0) * 1e3, densifies, i >= n_steps))
+        per_step.add((rasterize_cuda.RASTERIZE_FWD.launches - before[0],
+                      rasterize_cuda_bwd.RASTERIZE_BWD.launches - before[1]))
+        hist.append(m)
+        if densifies:
+            print(f"  step {it}: densify/prune n_alive {alive} -> "
+                  f"{int(trainer.scene.num_alive)} (capacity {trainer.scene.capacity})")
+    torch.cuda.synchronize()
+    launches8 = (rasterize_cuda.RASTERIZE_FWD.launches,
+                 rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    for k in range(0, n_steps + n_dist, n_views):
+        ms = hist[k:k + n_views]
+        print(f"  steps {k + 1}-{k + len(ms)}: loss "
+              + " ".join(f"{x['loss']:.5f}" for x in ms)
+              + f"; psnr " + " ".join(f"{x['psnr']:.3f}" for x in ms))
+    n_total = n_steps + n_dist
+    check(launches8 == (n_total, n_total) and per_step == {(1, 1)},
+          f"training launched B1 {launches8[0]} and B2 {launches8[1]} times over "
+          f"{n_total} steps, (B1, B2) per step {sorted(per_step)} (one each per step "
+          f"expected)")
+    check(all(np.isfinite(x["loss"]) and np.isfinite(x["psnr"]) for x in hist),
+          "every training loss and PSNR is finite")
+    # Each run of n_views steps visits every view once (a permutation), so the
+    # first and last such cycles of the 30 steps compare like with like.
+    first = hist[:n_views]
+    last = hist[n_steps - n_views:n_steps]
+    loss0, loss1 = (float(np.mean([x["loss"] for x in c])) for c in (first, last))
+    psnr0, psnr1 = (float(np.mean([x["psnr"] for x in c])) for c in (first, last))
+    check(loss1 < loss0, f"mean loss over the last view cycle {loss1:.5f} < first {loss0:.5f}")
+    check(psnr1 > psnr0, f"mean PSNR over the last view cycle {psnr1:.3f} > first {psnr0:.3f}")
+    check(hist[n_steps - 1]["loss"] < hist[0]["loss"],
+          f"last loss {hist[n_steps - 1]['loss']:.5f} < first {hist[0]['loss']:.5f}")
+    check(hist[n_steps - 1]["psnr"] > hist[0]["psnr"],
+          f"last PSNR {hist[n_steps - 1]['psnr']:.3f} > first {hist[0]['psnr']:.3f}")
+    print(f"  peak memory {peak8:.2f} GiB")
+
+    print("== phase 9: training timing")
+    plain_steps = [t for t, d, dist in step_ms[2:] if not d and not dist]
+    dist_steps = [t for t, d, dist in step_ms[n_steps:] if not d]
+    dens_steps = [t for t, d, _ in step_ms if d]
+    print(f"  train step (host clock, synchronized): median {np.median(plain_steps):.3f} ms "
+          f"over {len(plain_steps)} steps without densify (steps 3-{n_steps}); with "
+          f"distortion median {np.median(dist_steps):.3f} ms; with densify "
+          + ", ".join(f"{t:.1f}" for t in dens_steps) + " ms")
+    trainer.cfg = trainer.cfg.replace(lambda_dist=0.0)
+    splits = [timed_step(trainer) for _ in range(4)][1:]
+    split = {k: float(np.median([s_[k] for s_ in splits])) for k in splits[0]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.densify(trainer.iteration)
+    torch.cuda.synchronize()
+    split["densify"] = (time.perf_counter() - t0) * 1e3
+    print("  step split ms (CUDA events, median of 3; densify: one call, host clock): "
+          + " ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    with torch.no_grad():
+        print(f"  training shape (the first step's scene, view 0): {e8.shape[0]} entries, "
+              f"densest tile {int(b8.tile_count.max())}")
+        runs8 = bwd_vs_plain("training shape", b8, e8, w8, h8, cap)
+        rows8 = {}
+        for want_dist, (args, stats) in runs8.items():
+            mode = "full" if want_dist else "nodist"
+            k_ms = cuda_ms(lambda: rasterize_cuda_bwd.rasterize_backward(
+                *args, want_dist=want_dist))
+            p_ms = cuda_ms(lambda: rasterize_cuda_bwd.rasterize_backward_plain(
+                *args, want_dist=want_dist, max_elems=PLAIN_BWD_ELEMS), reps=1, warmup=0)
+            bound, by = bwd_bound(stats, w8, h8, b8.tile_count.numel(), want_dist)
+            f_ms = cuda_ms(lambda: rasterize_cuda.rasterize_entries(
+                args[0], args[2], args[3], args[6], w8, h8, want_aux=True,
+                want_dist=want_dist))
+            rows8[mode] = (k_ms, p_ms, bound, by)
+            print(f"  B2 [{mode}] kernel {k_ms:.4f} ms  plain {p_ms:.2f} ms  bound "
+                  f"{bound:.4f} ms ({by}); B1 [{mode}] at this shape {f_ms:.4f} ms")
+    print("  B2 library_ms: none (no single PyTorch call computes this function)")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ")
         return 1
-    # One launch of the main path = its two modes at frame 0, averaged.
+    # B1: one launch of the render main path = its two modes at frame 0,
+    # averaged; its launches are the render path's plus the training path's.
     main_ms = float(np.mean([rows4[m][0] for m in ("infer", "nodist")]))
     main_plain = float(np.mean([rows4[m][1] for m in ("infer", "nodist")]))
-    info = rasterize_cuda.RASTERIZE_FWD
-    print(json.dumps({"kernels": [{
-        "name": info.name, "route": "cuda", "source": info.source,
-        "replaces": info.replaces, "launches": launches, "max_abs_err": max_abs_err,
-        "ms": main_ms, "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4,
-        "library_ms": None}]}))
+    fwd, bwd = rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD
+    # B2: the training path's production mode (no distortion).
+    k_ms, p_ms, bound8, by8 = rows8["nodist"]
+    print(json.dumps({"kernels": [
+        {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
+         "launches": launches + launches8[0], "max_abs_err": max_abs_err, "ms": main_ms,
+         "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
+        {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
+         "launches": launches8[1], "max_abs_err": max_abs_err_bwd, "ms": k_ms,
+         "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

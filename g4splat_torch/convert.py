@@ -1,12 +1,16 @@
-"""Carry a scene and a camera across from the JAX package as numpy arrays.
+"""Carry a scene, cameras and training inputs across from the JAX package as
+numpy arrays.
 
 `scene_from_arrays` / `camera_from_arrays` take the fields of
 `g4splat_tpu`'s `GaussianScene` and `Camera` as array-likes;
 `scene_from` / `camera_from` read those fields off any object that has them
-(through ``np.asarray``), so the port never imports the JAX package.
+(through ``np.asarray``), and `train_config_from` / `views_from` do the same
+for `TrainConfig` and `ViewData`, so the port never imports the JAX package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -14,6 +18,7 @@ import torch
 from g4splat_torch.core.cameras import Camera, make_camera
 from g4splat_torch.device import DeviceLike, resolve_device
 from g4splat_torch.models.gaussians import GaussianScene
+from g4splat_torch.train.trainer import TrainConfig, ViewData
 
 SCENE_ARRAYS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw",
                 "rotation_raw", "alive", "mip_filter")
@@ -61,3 +66,17 @@ def camera_from(obj, device: DeviceLike = None) -> Camera:
         *(np.asarray(getattr(obj, k)) for k in CAMERA_ARRAYS),
         width=obj.width, height=obj.height, znear=obj.znear, zfar=obj.zfar,
         device=device)
+
+
+def train_config_from(obj) -> TrainConfig:
+    """Port TrainConfig from an object with TrainConfig's fields; fields it
+    lacks keep the port's defaults."""
+    return TrainConfig(**{f.name: getattr(obj, f.name)
+                          for f in dataclasses.fields(TrainConfig) if hasattr(obj, f.name)})
+
+
+def views_from(obj, device: DeviceLike = None) -> ViewData:
+    """Port ViewData from an object with ViewData's fields (e.g. the JAX one)."""
+    dev = resolve_device(device)
+    return ViewData(*(torch.as_tensor(np.array(getattr(obj, k), np.float32), device=dev)
+                      for k in ViewData._fields))

@@ -9,27 +9,35 @@
 // Design: one 256-thread block per 16x16 tile, one thread per pixel. The
 // tile's depth-sorted entry range is staged through shared memory in batches
 // of 256; each thread loads one 64-byte entry row and computes its per-entry
-// terms once (the nine ray-plane coefficients, the low-pass centre recomputed
-// from T, opacity, Tw, rgb, normal). Every pixel then walks the batch from
-// registers with shared-memory broadcasts, compositing front to back until
-// its transmittance would fall below 1e-4. The block leaves the loop once
-// __syncthreads_count says every pixel is done. Results go straight into the
-// (H, W, 13) float map and the (H, W) int32 n_contrib map. fp32 throughout.
+// terms once (T's rows, the low-pass centre recomputed from T, opacity, rgb,
+// normal). Every pixel then walks the batch from registers with shared-memory
+// broadcasts, compositing front to back until its transmittance would fall
+// below 1e-4. The block leaves the loop once __syncthreads_count says every
+// pixel is done. Results go straight into the (H, W, 13) float map and the
+// (H, W) int32 n_contrib map. fp32 throughout.
 //
-// What bounds it: per (pixel, entry) pair walked it does ~35 fp32 operations
-// (3 affine planes, one reciprocal, the two rho terms, an exp, alpha) plus
-// the composite update for contributors, against 64 bytes per entry a tile
-// must read (those up to where its last pixel saturates) and 56 bytes written
-// per pixel. The arithmetic on the pairs walked binds, at 2.4M splats as at
-// 200k. The design spends nothing per pair on memory: entry terms are
-// computed once per tile and read as broadcasts, and the per-pixel early stop
-// plus the block-wide vote skip pairs behind saturated pixels, so saturated
-// tiles never read most of their entries.
+// The ray-splat intersection is the reference's cross-product form
+// (p = (x Tw - Tu) x (y Tw - Tv), forward.cu:352-366), with k and l rounded
+// as the plain version rounds them (__fmul_rn/__fsub_rn: no contraction).
+// The TPU kernel's bilinear form (p_i = x A_i + y B_i + C_i) cancels terms of
+// size |T|^2 x at large pixel coordinates; B2 must decide rho3d <= rho2d as
+// the plain version does, and that form moved whole pixels to the other
+// branch.
 //
-// nvcc contracts products and sums into fused multiply-adds, which round once
-// where the plain version rounds twice: alpha >= 1/255 and the T crossings can
-// decide differently at isolated pixels, so comparisons grade those pixels by
-// their share of the image.
+// What bounds it: per (pixel, entry) pair walked it does ~47 fp32 operations
+// (k, l and their cross product, one reciprocal, the two rho terms, an exp,
+// alpha) plus the composite update for contributors, against 64 bytes per
+// entry a tile must read (those up to where its last pixel saturates) and 56
+// bytes written per pixel. The arithmetic on the pairs walked binds, at 2.4M
+// splats as at 200k. The design spends nothing per pair on memory: entry
+// terms are computed once per tile and read as broadcasts, and the per-pixel
+// early stop plus the block-wide vote skip pairs behind saturated pixels, so
+// saturated tiles never read most of their entries.
+//
+// nvcc contracts the remaining products and sums into fused multiply-adds,
+// which round once where the plain version rounds twice: alpha >= 1/255 and
+// the T crossings can decide differently at isolated pixels, so comparisons
+// grade those pixels by their share of the image.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +52,21 @@ constexpr float T_EPS = 1e-4f;
 constexpr float ALPHA_CLAMP = 0.99f;
 constexpr float CUTOFF_SQ = 9.0f;
 
+// p = k x l with k = x Tw - Tu, l = y Tw - Tv for entry j of the staged batch.
+template <int N>
+__device__ __forceinline__ void ray_splat(float px, float py, const float (&s_T)[9][N],
+                                          int j, float& p0, float& p1, float& p2) {
+  const float k0 = __fsub_rn(__fmul_rn(px, s_T[6][j]), s_T[0][j]);
+  const float k1 = __fsub_rn(__fmul_rn(px, s_T[7][j]), s_T[1][j]);
+  const float k2 = __fsub_rn(__fmul_rn(px, s_T[8][j]), s_T[2][j]);
+  const float l0 = __fsub_rn(__fmul_rn(py, s_T[6][j]), s_T[3][j]);
+  const float l1 = __fsub_rn(__fmul_rn(py, s_T[7][j]), s_T[4][j]);
+  const float l2 = __fsub_rn(__fmul_rn(py, s_T[8][j]), s_T[5][j]);
+  p0 = k1 * l2 - k2 * l1;
+  p1 = k2 * l0 - k0 * l2;
+  p2 = k0 * l1 - k1 * l0;
+}
+
 template <bool WANT_AUX, bool WANT_DIST>
 __global__ void __launch_bounds__(NPIX)
 rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
@@ -55,9 +78,8 @@ rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
                      int* __restrict__ n_contrib_out)      // (H, W)
 {
   // Per-entry terms of the current batch (broadcast reads: no bank conflicts).
-  __shared__ float s_plane[9][NPIX];   // A0 B0 C0 A1 B1 C1 A2 B2 C2
+  __shared__ float s_T[9][NPIX];       // Tu0 Tu1 Tu2 Tv0 Tv1 Tv2 Tw0 Tw1 Tw2
   __shared__ float s_cx[NPIX], s_cy[NPIX], s_opa[NPIX];
-  __shared__ float s_tw[3][NPIX];
   __shared__ float s_rgb[3][NPIX];
   __shared__ float s_nrm[3][NPIX];
 
@@ -87,16 +109,15 @@ rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
       const float Tu0 = a.x, Tu1 = a.y, Tu2 = a.z;
       const float Tv0 = a.w, Tv1 = b.x, Tv2 = b.y;
       const float Tw0 = b.z, Tw1 = b.w, Tw2 = c.x;
-      // p = (x·Tw − Tu) × (y·Tw − Tv) is affine in (x, y): p_i = x·A_i + y·B_i + C_i.
-      s_plane[0][threadIdx.x] = Tw2 * Tv1 - Tw1 * Tv2;
-      s_plane[1][threadIdx.x] = Tu2 * Tw1 - Tu1 * Tw2;
-      s_plane[2][threadIdx.x] = Tu1 * Tv2 - Tu2 * Tv1;
-      s_plane[3][threadIdx.x] = Tw0 * Tv2 - Tw2 * Tv0;
-      s_plane[4][threadIdx.x] = Tu0 * Tw2 - Tu2 * Tw0;
-      s_plane[5][threadIdx.x] = Tu2 * Tv0 - Tu0 * Tv2;
-      s_plane[6][threadIdx.x] = Tw1 * Tv0 - Tw0 * Tv1;
-      s_plane[7][threadIdx.x] = Tu1 * Tw0 - Tu0 * Tw1;
-      s_plane[8][threadIdx.x] = Tu0 * Tv1 - Tu1 * Tv0;
+      s_T[0][threadIdx.x] = Tu0;
+      s_T[1][threadIdx.x] = Tu1;
+      s_T[2][threadIdx.x] = Tu2;
+      s_T[3][threadIdx.x] = Tv0;
+      s_T[4][threadIdx.x] = Tv1;
+      s_T[5][threadIdx.x] = Tv2;
+      s_T[6][threadIdx.x] = Tw0;
+      s_T[7][threadIdx.x] = Tw1;
+      s_T[8][threadIdx.x] = Tw2;
       // Low-pass centre from the dual conic (forward.cu:119-147).
       const float cdist = CUTOFF_SQ * (Tw0 * Tw0 + Tw1 * Tw1) - Tw2 * Tw2;
       const bool cok = fabsf(cdist) > 1e-12f;
@@ -104,9 +125,6 @@ rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
       s_cx[threadIdx.x] = cok ? (CUTOFF_SQ * (Tu0 * Tw0 + Tu1 * Tw1) - Tu2 * Tw2) * cinv : 0.f;
       s_cy[threadIdx.x] = cok ? (CUTOFF_SQ * (Tv0 * Tw0 + Tv1 * Tw1) - Tv2 * Tw2) * cinv : 0.f;
       s_opa[threadIdx.x] = c.y;
-      s_tw[0][threadIdx.x] = Tw0;
-      s_tw[1][threadIdx.x] = Tw1;
-      s_tw[2][threadIdx.x] = Tw2;
       s_rgb[0][threadIdx.x] = c.z;
       s_rgb[1][threadIdx.x] = c.w;
       s_rgb[2][threadIdx.x] = d.x;
@@ -118,9 +136,8 @@ rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
     if (done) continue;
     const int n = min(NPIX, count - base);
     for (int j = 0; j < n; ++j) {
-      const float p0 = px * s_plane[0][j] + py * s_plane[1][j] + s_plane[2][j];
-      const float p1 = px * s_plane[3][j] + py * s_plane[4][j] + s_plane[5][j];
-      const float p2 = px * s_plane[6][j] + py * s_plane[7][j] + s_plane[8][j];
+      float p0, p1, p2;
+      ray_splat(px, py, s_T, j, p0, p1, p2);
       if (!(fabsf(p2) >= 1e-20f)) continue;
       // No clamp on su/sv: an overflow drives rho3d to inf, which loses the
       // min against rho2d.
@@ -133,7 +150,7 @@ rasterize_fwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
       const float rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy);
       const bool use3d = rho3d <= rho2d;
       const float rho = use3d ? rho3d : rho2d;
-      const float z = use3d ? su * s_tw[0][j] + sv * s_tw[1][j] + s_tw[2][j] : s_tw[2][j];
+      const float z = use3d ? su * s_T[6][j] + sv * s_T[7][j] + s_T[8][j] : s_T[8][j];
       const float alpha = fminf(ALPHA_CLAMP, s_opa[j] * expf(-0.5f * rho));
       if (!(z >= znear) || !(alpha >= ALPHA_EPS)) continue;
       const float T_next = T * (1.0f - alpha);

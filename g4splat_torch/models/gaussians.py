@@ -57,6 +57,10 @@ class GaussianScene:
     def capacity(self) -> int:
         return self.xyz.shape[0]
 
+    @property
+    def num_alive(self) -> torch.Tensor:
+        return self.alive.sum()
+
     def scaling(self) -> torch.Tensor:
         """(N, 2) activated tangent scales; the mip filter adds its variance
         (gaussian_model.py:158-163)."""
@@ -79,6 +83,40 @@ class GaussianScene:
     def features(self) -> torch.Tensor:
         """(N, K, 3) concatenated SH coefficients."""
         return torch.cat([self.f_dc, self.f_rest], dim=1)
+
+    # --------------------------------------------------------------- editing
+    def one_up_sh_degree(self) -> "GaussianScene":
+        if self.active_sh_degree < self.max_sh_degree:
+            return self.replace(active_sh_degree=self.active_sh_degree + 1)
+        return self
+
+    def reset_opacity(self, ceiling: float = 0.01) -> "GaussianScene":
+        """Clamp activated opacity to `ceiling` (gaussian_model.py:436-439)."""
+        o = torch.clamp(torch.clamp(torch.sigmoid(self.opacity_raw), max=ceiling),
+                        1e-6, 1.0 - 1e-6)
+        return self.replace(opacity_raw=torch.log(o) - torch.log1p(-o))
+
+    def compute_mip_filter(self, cameras, znear: float = 0.2,
+                           filter_variance: float = 0.2) -> "GaussianScene":
+        """Per-splat screen-space low-pass scale: min view depth / max focal ×
+        sqrt(filter_variance) over all cameras seeing the splat
+        (gaussian_model.py:388-434). `cameras` is a batched Camera."""
+        w2c = cameras.w2c                                        # (V, 4, 4)
+        p_cam = torch.einsum("vij,nj->vni", w2c[:, :3, :3], self.xyz) + w2c[:, None, :3, 3]
+        z = torch.clamp(p_cam[..., 2], min=1e-3)                 # (V, N)
+        width, height = float(cameras.width), float(cameras.height)
+        x = p_cam[..., 0] / z * cameras.fx[:, None] + width / 2.0
+        y = p_cam[..., 1] / z * cameras.fy[:, None] + height / 2.0
+        in_screen = ((x >= -0.15 * width) & (x <= 1.15 * width)
+                     & (y >= -0.15 * height) & (y <= 1.15 * height))
+        valid = (p_cam[..., 2] > znear) & in_screen
+        distance = torch.where(valid, z, torch.inf).amin(dim=0)
+        seen = valid.any(dim=0)
+        # Unseen splats get the max distance among seen ones.
+        fallback = torch.where(seen, distance, -torch.inf).max()
+        distance = torch.where(seen, distance, fallback)
+        mip = (distance / cameras.fx.max() * filter_variance ** 0.5)[..., None]
+        return self.replace(mip_filter=mip, use_mip_filter=True)
 
     # ----------------------------------------------------------- construction
     @staticmethod

@@ -5,6 +5,8 @@ Each source compiles on its own (seconds, no PyTorch headers) into
 ``build/kernels/`` at the repository root, under a name that carries a hash of
 the source and flags, so an edited source is never served a stale library.
 Nothing is built at import: the first call that needs a kernel builds it.
+`KernelInfo` records each kernel's source, the TPU kernel it replaces, and
+the launches its wrapper counts.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -21,9 +24,19 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("rasterize_fwd",)
+SOURCES = ("rasterize_fwd", "rasterize_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclass
+class KernelInfo:
+    """A hand-written kernel and the count of its launches (incremented by
+    its wrapper at each launch, and nowhere else)."""
+    name: str
+    source: str     # path in the repository
+    replaces: str   # file:line of the TPU kernel it replaces
+    launches: int = 0
 
 
 def _nvcc() -> str:

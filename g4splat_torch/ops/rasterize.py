@@ -9,8 +9,9 @@ densification hooks (screen radii, visibility).
 Backends:
 - "dense": O(P·npix) oracle, autograd            rasterize_dense.py
 - "tiled": tile-binned PyTorch, autograd         rasterize_tiled.py
-- "cuda":  tile-binned hand-written CUDA kernel  rasterize_cuda.py
-           (its plain PyTorch version on CPU tensors); forward only.
+- "cuda":  tile-binned hand-written CUDA kernels rasterize_cuda.py
+           (their plain PyTorch versions on CPU tensors); differentiable
+           through B1 forward / B2 backward, except with need_aux=False.
 """
 
 from __future__ import annotations
@@ -36,24 +37,15 @@ def render(
 ) -> Dict[str, torch.Tensor]:
     """Render `scene` from `camera` on the scene's device.
 
-    need_aux=False selects the inference kernel on the cuda backend (no
-    distortion / n_contrib / moments — those outputs are zeros);
-    `config.compute_distortion=False` drops only the distortion channel there.
-    The dense and tiled backends compute everything.
+    need_aux=False selects the forward-only inference kernel on the cuda
+    backend (no distortion / n_contrib / moments — those outputs are zeros;
+    it refuses inputs that require grad); `config.compute_distortion=False`
+    drops only the distortion channel there. The dense and tiled backends
+    compute everything.
     """
     config = config or RenderConfig()
     H, W = camera.height, camera.width
     dev = scene.device
-
-    if backend == "cuda" and torch.is_grad_enabled():
-        inputs = scene.tensors() + [
-            t for t in (center_offset, override_color, camera.w2c, camera.fx,
-                        camera.fy, camera.cx, camera.cy) if t is not None]
-        if any(t.requires_grad for t in inputs):
-            raise NotImplementedError(
-                "render(backend='cuda') is forward-only: the backward kernel "
-                "is not yet ported; use backend='tiled' or 'dense' for "
-                "gradients, or run under torch.no_grad()")
 
     prep = preprocess(
         camera,
@@ -88,17 +80,30 @@ def render(
             ellipse_prune=config.tile_ellipse_prune)
         n_dropped, n_overflow = binning.n_dropped, binning.n_overflow
     elif backend == "cuda":
-        from g4splat_torch.ops.rasterize_cuda import pack_entries, rasterize_entries
+        from g4splat_torch.ops.rasterize_cuda import (
+            pack_entries,
+            rasterize_diff,
+            rasterize_entries,
+        )
         from g4splat_torch.ops.rasterize_tiled import bin_splats
 
         binning = bin_splats(prep, W, H,
                              max_tiles_per_splat=config.max_tiles_per_splat,
                              ellipse_prune=config.tile_ellipse_prune)
-        entries = pack_entries(prep, binning.gauss_id)
-        maps = rasterize_entries(entries, binning.tile_start, binning.tile_count,
-                                 bg, W, H, near=config.near, far=config.far,
-                                 want_aux=need_aux,
-                                 want_dist=config.compute_distortion)
+        if need_aux:
+            maps = rasterize_diff(prep, binning, bg, W, H, near=config.near,
+                                  far=config.far, want_dist=config.compute_distortion)
+        else:
+            diff = (prep.T, prep.center, prep.opacity, prep.rgb, prep.normal)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
+                raise RuntimeError(
+                    "render(backend='cuda', need_aux=False) is the forward-only "
+                    "inference path; use need_aux=True for gradients, or run "
+                    "under torch.no_grad()")
+            entries = pack_entries(prep, binning.gauss_id)
+            maps = rasterize_entries(entries, binning.tile_start, binning.tile_count,
+                                     bg, W, H, near=config.near, far=config.far,
+                                     want_aux=False)
         n_dropped, n_overflow = binning.n_dropped, binning.n_overflow
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -37,6 +37,10 @@ ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
 ALPHA_CLAMP = 0.99
 CUTOFF = 3.0  # Gaussian support cutoff in σ
+# The CUDA kernels' entry table: (E, 16) float32, one 64-byte row per entry
+# (0-8 T rows Tu, Tv, Tw; 9 opacity, 0 for culled splats; 10-12 rgb; 13-15
+# view-space normal). The low-pass centre is recomputed from T.
+ENTRY_F = 16
 
 
 @dataclass(frozen=True)
@@ -193,11 +197,27 @@ def preprocess(
     )
 
 
-def alpha_depth(T, center, opacity, valid, px, py, near: float = NEAR_N):
-    """Per-(splat, pixel) alpha and intersection depth (forward.cu:352-389).
+class RaySplat(NamedTuple):
+    """The ray-splat terms of every (splat, pixel) pair, shape (..., K, N[, 3])."""
+    k: torch.Tensor           # x·Tw − Tu
+    l: torch.Tensor           # y·Tw − Tv
+    pz: torch.Tensor          # (k × l)_z
+    safe_pz: torch.Tensor     # pz, 1 where |pz| < 1e-20
+    su_raw: torch.Tensor      # intersection (u, v) before the clamp
+    sv_raw: torch.Tensor
+    su: torch.Tensor
+    sv: torch.Tensor
+    dx: torch.Tensor          # centre − pixel
+    dy: torch.Tensor
+    use3d: torch.Tensor       # rho3d ≤ rho2d
+    rho: torch.Tensor
+    depth: torch.Tensor
 
-    T (..., K, 3, 3), center (..., K, 2), opacity and valid (..., K); px, py
-    (..., N) pixel coordinates. Returns alpha, depth of shape (..., K, N).
+
+def ray_splat(T, center, px, py) -> RaySplat:
+    """Ray-splat intersection and low-pass terms (forward.cu:352-375).
+
+    T (..., K, 3, 3), center (..., K, 2); px, py (..., N) pixel coordinates.
     """
     Tu = T[..., :, None, 0, :]        # (..., K, 1, 3)
     Tv = T[..., :, None, 1, :]
@@ -212,8 +232,10 @@ def alpha_depth(T, center, opacity, valid, px, py, near: float = NEAR_N):
     # Clamp the intersection coordinates: grazing splats give huge |s| whose
     # square overflows f32 and turns gradients into inf·0 = NaN. exp(-0.5·ρ)
     # is already 0 far below the clamp, so results are unchanged.
-    su = torch.clamp(p[..., 0] / safe_pz, -3e4, 3e4)
-    sv = torch.clamp(p[..., 1] / safe_pz, -3e4, 3e4)
+    su_raw = p[..., 0] / safe_pz
+    sv_raw = p[..., 1] / safe_pz
+    su = torch.clamp(su_raw, -3e4, 3e4)
+    sv = torch.clamp(sv_raw, -3e4, 3e4)
     rho3d = su * su + sv * sv
     dx = center[..., :, None, 0] - px[..., None, :]
     dy = center[..., :, None, 1] - py[..., None, :]
@@ -222,10 +244,20 @@ def alpha_depth(T, center, opacity, valid, px, py, near: float = NEAR_N):
     rho = torch.minimum(rho3d, rho2d)
     depth = torch.where(use3d, su * Tw[..., 0] + sv * Tw[..., 1] + Tw[..., 2],
                         Tw[..., 2])
-    alpha = torch.clamp(opacity[..., :, None] * torch.exp(-0.5 * rho), max=ALPHA_CLAMP)
-    live = ((torch.abs(pz) >= 1e-20) & (depth >= near) & (alpha >= ALPHA_EPS)
+    return RaySplat(k, l, pz, safe_pz, su_raw, sv_raw, su, sv, dx, dy, use3d, rho, depth)
+
+
+def alpha_depth(T, center, opacity, valid, px, py, near: float = NEAR_N):
+    """Per-(splat, pixel) alpha and intersection depth (forward.cu:352-389).
+
+    T (..., K, 3, 3), center (..., K, 2), opacity and valid (..., K); px, py
+    (..., N) pixel coordinates. Returns alpha, depth of shape (..., K, N).
+    """
+    r = ray_splat(T, center, px, py)
+    alpha = torch.clamp(opacity[..., :, None] * torch.exp(-0.5 * r.rho), max=ALPHA_CLAMP)
+    live = ((torch.abs(r.pz) >= 1e-20) & (r.depth >= near) & (alpha >= ALPHA_EPS)
             & valid[..., :, None])
-    return torch.where(live, alpha, 0.0), depth
+    return torch.where(live, alpha, 0.0), r.depth
 
 
 def splat_alpha_depth(prep: Preprocessed, px: torch.Tensor, py: torch.Tensor,

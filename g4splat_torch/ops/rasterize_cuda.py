@@ -17,7 +17,11 @@ ends the walk of a saturated tile.
 launches the kernel (or raises), on CPU tensors it runs the plain version.
 There is no fallback from one to the other.
 
-The entry table is (E, 16) float32, one 64-byte row per entry:
+`rasterize_diff` is the differentiable composite: one `torch.autograd.Function`
+that packs the entry table and runs B1 forward, and runs B2
+(`rasterize_cuda_bwd`) backward (counterpart of `_render_pallas_diff`).
+
+The entry table is `rasterize_common.ENTRY_F` (16) float32 columns per entry:
 0-8 T (rows Tu, Tv, Tw), 9 opacity (0 for culled splats), 10-12 rgb,
 13-15 view-space normal. The low-pass centre is recomputed from T.
 """
@@ -25,12 +29,13 @@ The entry table is (E, 16) float32, one 64-byte row per entry:
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 from typing import Dict
 
 import torch
 
+from g4splat_torch.ops.cuda_build import KernelInfo
 from g4splat_torch.ops.rasterize_common import (
+    ENTRY_F,
     FAR_N,
     NEAR_N,
     TILE,
@@ -38,32 +43,22 @@ from g4splat_torch.ops.rasterize_common import (
     alpha_depth,
     conic_center,
 )
+from g4splat_torch.ops.rasterize_cuda_bwd import COT_C, rasterize_backward
 from g4splat_torch.ops.rasterize_dense import composite
-from g4splat_torch.ops.rasterize_tiled import assemble_tiles
+from g4splat_torch.ops.rasterize_tiled import Binning, assemble_tiles
 
 NPIX = TILE * TILE
-ENTRY_F = 16
 # Output channels of the float map, in the kernel's order.
 OUT_C = 13
 CH_COLOR, CH_NORMAL = slice(0, 3), slice(3, 6)
 CH_DEPTH, CH_ALPHA, CH_DIST, CH_MEDIAN, CH_FINAL_T, CH_M1, CH_M2 = range(6, 13)
-# fp32 operations per (pixel, entry) pair walked: 3 affine planes (12), the
-# |p2| test (1), reciprocal (1), su/sv (2), rho3d (3), dx/dy (2), rho2d (4),
-# min/select (2), z (4), exp argument and exp (2), alpha (2) — the cost of
-# every pair walked, contributors or not; a contributor's composite update
-# adds a further ~20.
-OPS_PER_PAIR = 35
+# fp32 operations per (pixel, entry) pair walked: k and l (12), their cross
+# product (9), the |p2| test (1), reciprocal (1), su/sv (2), rho3d (3), dx/dy
+# (2), rho2d (4), min/select (2), z (4), exp argument and exp (2), alpha (2) —
+# the cost of every pair walked, contributors or not; a contributor's
+# composite update adds a further ~20.
+OPS_PER_PAIR = 44
 OUT_BYTES_PER_PIXEL = OUT_C * 4 + 4
-
-
-@dataclass
-class KernelInfo:
-    """A hand-written kernel and the count of its launches (incremented by
-    its wrapper at each launch, and nowhere else)."""
-    name: str
-    source: str     # path in the repository
-    replaces: str   # file:line of the TPU kernel it replaces
-    launches: int = 0
 
 
 RASTERIZE_FWD = KernelInfo(
@@ -76,9 +71,12 @@ RASTERIZE_FWD = KernelInfo(
 def pack_entries(prep: Preprocessed, gauss_id: torch.Tensor) -> torch.Tensor:
     """Gather per-entry features into the (E, 16) entry table (one row gather
     from a per-splat table; culled splats carry zero opacity)."""
-    P = prep.depth.shape[0]
-    opa = torch.where(prep.valid, prep.opacity, 0.0)
-    table = torch.cat([prep.T.reshape(P, 9), opa[:, None], prep.rgb, prep.normal], 1)
+    return _pack(prep.T, prep.valid, prep.opacity, prep.rgb, prep.normal, gauss_id)
+
+
+def _pack(T, valid, opacity, rgb, normal, gauss_id):
+    opa = torch.where(valid, opacity, 0.0)
+    table = torch.cat([T.reshape(T.shape[0], 9), opa[:, None], rgb, normal], 1)
     return table.to(torch.float32)[gauss_id.long()].contiguous()
 
 
@@ -258,3 +256,60 @@ def rasterize_entries_plain(entries: torch.Tensor, tile_start: torch.Tensor,
                  assemble_tiles(n_contrib, width, height))
     maps["n_walked"] = assemble_tiles(n_walked, width, height)
     return maps
+
+
+MAP_KEYS = ("color", "normal", "depth_acc", "alpha", "distortion", "median_depth",
+            "final_T", "n_contrib", "m1_tot", "m2_tot")
+
+
+class _Rasterize(torch.autograd.Function):
+    """B1 forward in mode want_aux=True, B2 backward (counterpart of
+    `_render_pallas_fwd` / `_render_pallas_bwd`). Differentiable inputs: the
+    preprocessed T, center, opacity, rgb and normal. The kernels recompute
+    the centre from T; `center` is an input only so that d_center (the 2D
+    low-pass branch's gradient) reaches it, and through `preprocess` the
+    screen-space offset that densify reads. n_contrib and the moment totals
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, T, center, opacity, rgb, normal, valid, gauss_id, tile_start,
+                tile_count, bg, width, height, near, far, want_dist):
+        entries = _pack(T, valid, opacity, rgb, normal, gauss_id)
+        maps = rasterize_entries(entries, tile_start, tile_count, bg, width, height,
+                                 near, far, want_aux=True, want_dist=want_dist)
+        aux = torch.stack([maps["final_T"], maps["n_contrib"].to(torch.float32),
+                           maps["m1_tot"], maps["m2_tot"]], -1)
+        ctx.save_for_backward(entries, gauss_id, tile_start, tile_count, aux, valid, bg)
+        ctx.geom = (width, height, near, far, want_dist, T.shape[0])
+        ctx.mark_non_differentiable(maps["n_contrib"], maps["m1_tot"], maps["m2_tot"])
+        return tuple(maps[k] for k in MAP_KEYS)
+
+    @staticmethod
+    def backward(ctx, g_color, g_normal, g_depth, g_alpha, g_dist, g_med, g_final_T,
+                 *_):
+        entries, gauss_id, tile_start, tile_count, aux, valid, bg = ctx.saved_tensors
+        width, height, near, far, want_dist, P = ctx.geom
+        # The final_T cotangent folds into the alpha channel with the opposite
+        # sign (gT_end = bg·gC − gA + gFinT), as rasterize_pallas.py:689-704.
+        cot = torch.cat([g_color, g_normal, g_depth[..., None],
+                         (g_alpha - g_final_T)[..., None], g_dist[..., None],
+                         g_med[..., None], g_color.new_zeros((height, width, COT_C - 10))],
+                        -1).to(torch.float32)
+        grad = rasterize_backward(entries, gauss_id, tile_start, tile_count, aux, cot,
+                                  bg, width, height, P, near, far, want_dist)
+        # The packed opacity was where(valid, opacity, 0).
+        d_opacity = grad[:, 11] * valid.to(grad.dtype)
+        return (grad[:, 0:9].reshape(P, 3, 3), grad[:, 9:11], d_opacity,
+                grad[:, 12:15], grad[:, 15:18]) + (None,) * 10
+
+
+def rasterize_diff(prep: Preprocessed, binning: Binning, bg: torch.Tensor, width: int,
+                   height: int, near: float = NEAR_N, far: float = FAR_N,
+                   want_dist: bool = True) -> Dict[str, torch.Tensor]:
+    """The (H, W[, C]) maps of `rasterize_entries` in mode want_aux=True,
+    differentiable in prep's T, center, opacity, rgb and normal."""
+    out = _Rasterize.apply(prep.T, prep.center, prep.opacity, prep.rgb, prep.normal,
+                           prep.valid, binning.gauss_id, binning.tile_start,
+                           binning.tile_count, bg.to(torch.float32), width, height,
+                           near, far, want_dist)
+    return dict(zip(MAP_KEYS, out))

@@ -206,6 +206,18 @@ def assemble_tiles(flat: torch.Tensor, width: int, height: int) -> torch.Tensor:
     return img.reshape((gy * TILE, gx * TILE) + ch)[:height, :width]
 
 
+def disassemble_tiles(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(H, W[, C]) image → (n_tiles, TILE·TILE[, C]) per-tile maps, zeros on
+    the pixels past the image edge (inverse of `assemble_tiles`)."""
+    gx = (width + TILE - 1) // TILE
+    gy = (height + TILE - 1) // TILE
+    ch = tuple(img.shape[2:])
+    pad = img.new_zeros((gy * TILE, gx * TILE) + ch)
+    pad[:height, :width] = img
+    return pad.reshape((gy, TILE, gx, TILE) + ch).transpose(1, 2).reshape(
+        (gy * gx, TILE * TILE) + ch)
+
+
 def _render_tiles(prep: Preprocessed, binning: Binning, bg: torch.Tensor,
                   width: int, height: int, near: float, far: float,
                   tile_k: int, tile_batch: int):

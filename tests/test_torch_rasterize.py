@@ -252,10 +252,15 @@ class TestRender:
         assert rel < 1e-4, rel
 
     def test_cuda_backend_refuses_grad(self, spread_case):
+        """need_aux=False is the forward-only inference path: it refuses
+        inputs that require grad (need_aux=True differentiates through B2)."""
         c = spread_case
         scene = c.ts.replace(xyz=c.ts.xyz.clone().requires_grad_(True))
-        with pytest.raises(NotImplementedError, match="backward kernel"):
-            trast.render(c.tc, scene, c.tcfg, backend="cuda")
+        with pytest.raises(RuntimeError, match="forward-only"):
+            trast.render(c.tc, scene, c.tcfg, backend="cuda", need_aux=False)
+        with torch.no_grad():
+            trast.render(c.tc, scene, c.tcfg, backend="cuda", need_aux=False)
+        assert trast.render(c.tc, scene, c.tcfg, backend="cuda")["render"].requires_grad
 
     def test_mark_visible(self, spread_case):
         c = spread_case
