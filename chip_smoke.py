@@ -1,13 +1,15 @@
-"""Drive the g4splat_torch render and training paths on one NVIDIA GPU and
-hold their CUDA kernels (B1 forward, B2 backward) against the kernels'
-plain PyTorch versions.
+"""Drive the g4splat_torch render, training and See3D inpainting paths on
+one NVIDIA GPU and hold their CUDA kernels (B1 forward rasterizer, B2
+backward rasterizer, B3 attention) against the kernels' plain PyTorch
+versions.
 
 Run from the repository root, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device, toolkit and card (TF32 turned off for matmul and cuDNN);
+  1. device, toolkit and card; PyTorch's TF32 flags, which the port's
+     entry points turn off while they run (g4splat_torch.device.fp32_math);
   2. build every kernel from g4splat_torch/csrc, one nvcc per source, all
      started together (prints nvcc -Xptxas -v);
   3. B1 vs its plain version in all three modes, and B2 vs its plain
@@ -37,6 +39,21 @@ Phases (any failure exits non-zero and prints no result line):
      losses, backward, Adam, densify); B2 vs its plain version, and its time
      beside its bound and the plain version's, at the training shape (the
      first step's scene); peak memory.
+ 10. B3 vs its plain version (chunked_attention) at every attention shape of
+     the See3D main path, at odd shapes, at D = 128 and on ±30-scaled
+     logits: max|kernel - plain| <= B3_TOL * max|plain|, with the dense
+     plain version's error beside B3's where its logits fit; B3, plain and
+     F.scaled_dot_product_attention ms (CUDA events) beside the bound;
+ 11. the See3D main path at full MVDream width (UNetConfig(), AutoencoderKL(),
+     CLIPVision(), CLIPText(), seeded random weights, the zero-init layers
+     re-drawn): 4 reference images and 5 warps with their masks rendered by
+     B1 at 512x512 from the phase-4 scene, run_see3d_inpaint with 5 DDIM
+     timesteps; finite outputs, exactly 32 B3 launches per UNet call, the
+     UNet run with TF32 off, and the same stage with plain attention agrees
+     (images);
+ 12. See3D timings: the stage's split (CLIP, VAE encode, UNet call, DDIM
+     loop, VAE decode) by CUDA events; the DDIM loop's latents with B3 and
+     with plain attention agree; peak memory.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
@@ -86,6 +103,47 @@ FLOAT_MAPS = ("color", "normal", "depth_acc", "alpha", "distortion", "final_T",
 GRAD_GROUPS = {"dT": slice(0, 9), "d_center": slice(9, 11), "d_opacity": slice(11, 12),
                "d_rgb": slice(12, 15), "d_normal": slice(15, 18)}
 PARAMS = ("xyz", "scaling_raw", "rotation_raw", "opacity_raw", "f_dc", "f_rest")
+# B3 vs its plain version: max|kernel - plain| <= B3_TOL * max|plain| (fp32
+# sums taken in another order, exp2 instead of exp).
+B3_TOL = 1e-4
+# Phase 10: (q shape, k/v shape, logit scale). First the main path's
+# attention shapes at 512 px (9 frames of 64x64 latents, two branches):
+# self-attention (2, 9*h*w, C/64, 64) and cross-attention (18, h*w, C/64, 64)
+# against 77 context tokens at h*w = 4096, 1024, 256, 64; then odd shapes,
+# D = 128 and extreme logits.
+B3_SHAPES = (
+    ((2, 36864, 5, 64), (2, 36864, 5, 64), 1.0),
+    ((2, 9216, 10, 64), (2, 9216, 10, 64), 1.0),
+    ((2, 2304, 20, 64), (2, 2304, 20, 64), 1.0),
+    ((2, 576, 20, 64), (2, 576, 20, 64), 1.0),
+    ((18, 4096, 5, 64), (18, 77, 5, 64), 1.0),
+    ((18, 1024, 10, 64), (18, 77, 10, 64), 1.0),
+    ((18, 256, 20, 64), (18, 77, 20, 64), 1.0),
+    ((18, 64, 20, 64), (18, 77, 20, 64), 1.0),
+    ((1, 50, 2, 16), (1, 33, 2, 16), 1.0),
+    ((2, 1000, 3, 32), (2, 257, 3, 32), 1.0),
+    ((1, 300, 2, 128), (1, 300, 2, 128), 1.0),
+    ((2, 1000, 4, 128), (2, 257, 4, 128), 1.0),
+    ((1, 130, 2, 16), (1, 130, 2, 16), 30.0),
+    ((2, 4096, 5, 64), (2, 4096, 5, 64), 30.0),
+)
+# Printed, not gated: at D = 128 with ±30-scaled logits (scores of size
+# ~3000) the two plain versions, dense and chunked, already differ by more
+# than the gate, which is why the card tests hold extreme logits at D <= 64.
+B3_ILL_CONDITIONED = ((2, 130, 3, 128), (2, 130, 3, 128), 30.0)
+# The dense plain version's error is printed where its logits take at most
+# this many elements.
+DENSE_LOGITS_MAX = 1 << 28
+# Phase 11: (reference views, warps, MVD resolution, DDIM steps). 4 steps on
+# the trailing grid give 5 timesteps, so 5 UNet calls.
+SEE3D_SHAPE = (4, 5, 512, 4)
+# Full-width See3D priors: UNetConfig() and CLIP widths by default;
+# a CPU rehearsal shrinks these.
+SEE3D_MODELS = dict(unet={}, vae={}, clip_vision={}, clip_text={})
+# The See3D stage with B3 against the same stage with plain attention:
+# latents ||d|| / ||plain|| and images max|d|.
+SEE3D_LAT_TOL = 1e-3
+SEE3D_IMG_TOL = 2e-3
 
 failures = []
 max_abs_err = 0.0
@@ -488,10 +546,11 @@ def training_data(n_live, capacity, w, h, n_views):
 def timed_step(trainer, events=True):
     """One training step run stage by stage with the functions train_step
     calls (render and the losses, backward, Adam with the stat accumulation),
-    each timed by CUDA events from the end of the one before. Returns
-    {stage: ms}."""
+    each timed by CUDA events from the end of the one before, with TF32 off
+    as train_step runs. Returns {stage: ms}."""
     import torch
 
+    from g4splat_torch.device import fp32_math
     from g4splat_torch.ops.rasterize import render
     from g4splat_torch.ops.rasterize_common import RenderConfig
     from g4splat_torch.train.densify import accumulate_stats
@@ -504,25 +563,281 @@ def timed_step(trainer, events=True):
     scene = trainer.scene
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     torch.cuda.synchronize()
-    ev[0].record()
-    offset = torch.zeros((scene.capacity, 2), device=DEVICE, requires_grad=True)
-    out = render(cam, scene, RenderConfig(bg=(0.0, 0.0, 0.0), depth_ratio=cfg.depth_ratio,
-                                          compute_distortion=cfg.lambda_dist != 0.0,
-                                          max_tiles_per_splat=cfg.raster_max_tiles_per_splat),
-                 center_offset=offset, backend=cfg.backend)
-    ev[1].record()
-    loss, aux = losses_from_render(scene, out, view, cfg, it, generator=trainer.generator)
-    ev[2].record()
-    trainer.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    ev[3].record()
-    adam_step(trainer.optimizer, cfg)
-    trainer.dstate = accumulate_stats(trainer.dstate, offset.grad, aux["radii"],
-                                      aux["visibility"])
-    ev[4].record()
+    with fp32_math():
+        ev[0].record()
+        offset = torch.zeros((scene.capacity, 2), device=DEVICE, requires_grad=True)
+        out = render(cam, scene, RenderConfig(bg=(0.0, 0.0, 0.0), depth_ratio=cfg.depth_ratio,
+                                              compute_distortion=cfg.lambda_dist != 0.0,
+                                              max_tiles_per_splat=cfg.raster_max_tiles_per_splat),
+                     center_offset=offset, backend=cfg.backend)
+        ev[1].record()
+        loss, aux = losses_from_render(scene, out, view, cfg, it, generator=trainer.generator)
+        ev[2].record()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        adam_step(trainer.optimizer, cfg)
+        trainer.dstate = accumulate_stats(trainer.dstate, offset.grad, aux["radii"],
+                                          aux["visibility"])
+        ev[4].record()
     torch.cuda.synchronize()
     names = ("forward render", "losses", "backward", "Adam + stats")
     return {k: a.elapsed_time(b) for k, a, b in zip(names, ev, ev[1:])}
+
+
+def b3_bound(qs, ks):
+    """Least time for B3's work: 4·B·H·N·M·D fp32 operations against q, k,
+    v read once and the output written once. Returns (ms, 'bytes' |
+    'operations')."""
+    from g4splat_torch.ops.attention_cuda import FLOPS_PER_PAIR_PER_DIM
+
+    B, N, H, D = qs
+    M = ks[1]
+    t_ops = FLOPS_PER_PAIR_PER_DIM * B * H * N * M * D / FP32_OPS_PER_S * 1e3
+    t_bytes = 4 * (2 * B * N * H * D + 2 * B * M * H * D) / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b3_main_launches(cfg, frames, lat, n_calls, n_ctx=77):
+    """{(q shape, keys): B3 launches} on the See3D main path, from the UNet's layout:
+    each transformer block makes one self-attention over the 2 branches'
+    frames jointly and one cross-attention per frame, at its level's
+    latent size."""
+    out = {}
+    last = len(cfg.channel_mult) - 1
+    for i, mult in enumerate(cfg.channel_mult):
+        ds = 2 ** i
+        blocks = cfg.transformer_depth * (
+            (2 * cfg.num_res_blocks + 1 if ds in cfg.attention_resolutions else 0)
+            + (1 if i == last else 0))
+        if not blocks:
+            continue
+        heads, dh = cfg.heads_for(cfg.model_channels * mult)
+        hw = (lat // ds) ** 2
+        for key in (((2, frames * hw, heads, dh), frames * hw),
+                    ((2 * frames, hw, heads, dh), n_ctx)):
+            out[key] = out.get(key, 0) + blocks * n_calls
+    return out
+
+
+def sdpa_backend(q, k, v):
+    """The backend F.scaled_dot_product_attention picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({e})"
+
+
+def attention_vs_plain(main_launches):
+    """Phase 10: B3 against chunked_attention on the same card tensors at
+    every B3_SHAPES entry; times B3, the plain version and SDPA (the
+    yardstick, never called by the port). `main_launches` maps (q shape,
+    keys) to the main path's launches. Returns {shape entry: (B3 ms, plain
+    ms, SDPA ms, bound ms, bound_by)} and the largest |kernel - plain|."""
+    import torch
+    import torch.nn.functional as F
+
+    from g4splat_torch.device import fp32_math
+    from g4splat_torch.ops.attention import (chunked_attention, dot_product_attention_plain,
+                                             memory_efficient_attention)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+
+    def draw(qs, ks, scale):
+        return (scale * torch.randn(qs, device=DEVICE, generator=gen),
+                scale * torch.randn(ks, device=DEVICE, generator=gen),
+                torch.randn(ks, device=DEVICE, generator=gen))
+
+    def errors(q, k, v):
+        """(B3 output, chunked plain output, max|B3 - plain|, max|dense plain
+        - plain| or None where the dense logits do not fit)."""
+        got = memory_efficient_attention(q, k, v)
+        ref = chunked_attention(q, k, v)
+        dense = None
+        if q.shape[0] * q.shape[1] * q.shape[2] * k.shape[1] <= DENSE_LOGITS_MAX:
+            dense = float((dot_product_attention_plain(q, k, v) - ref).abs().max())
+        torch.cuda.synchronize()
+        return got, ref, float((got - ref).abs().max()), dense
+
+    rows, worst = {}, 0.0
+    with fp32_math():
+        for qs, ks, scale in B3_SHAPES:
+            q, k, v = draw(qs, ks, scale)
+            got, ref, err, dense = errors(q, k, v)
+            top = float(ref.abs().max())
+            worst = max(worst, err)
+            check(bool(torch.isfinite(got).all()) and err <= B3_TOL * top,
+                  f"B3 {qs} x {ks[1]} keys, logits x{scale:g}: max|kernel - plain| {err:.2e} "
+                  f"<= {B3_TOL} * max|plain| {top:.3e}; max|dense plain - plain| "
+                  + ("not run (logits too large)" if dense is None else f"{dense:.2e}"))
+            k_ms = cuda_ms(lambda: memory_efficient_attention(q, k, v), reps=3, warmup=1)
+            p_ms = cuda_ms(lambda: chunked_attention(q, k, v), reps=1, warmup=0)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # (B, H, tokens, D)
+            l_err = float((F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2) - ref)
+                          .abs().max())
+            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=3, warmup=1)
+            bound, by = b3_bound(qs, ks)
+            rows[(qs, ks, scale)] = (k_ms, p_ms, l_ms, bound, by)
+            print(f"      B3 {k_ms:.4f} ms  plain {p_ms:.3f} ms  SDPA {l_ms:.4f} ms "
+                  f"({sdpa_backend(qt, kt, vt)}, max|SDPA - plain| {l_err:.2e})  bound "
+                  f"{bound:.4f} ms ({by}), B3 at "
+                  f"{100 * bound / k_ms:.1f} % of it; main-path launches "
+                  f"{main_launches.get((qs, ks[1]), 0) if scale == 1.0 else 0}")
+        qs, ks, scale = B3_ILL_CONDITIONED
+        _, ref, err, dense = errors(*draw(qs, ks, scale))
+        print(f"  not gated, {qs} x {ks[1]} keys, logits x{scale:g}: max|kernel - plain| "
+              f"{err:.2e}, max|dense plain - plain| {dense:.2e}, against a gate of "
+              f"{B3_TOL * float(ref.abs().max()):.2e}")
+    return rows, worst
+
+
+def see3d_priors(seed, n_steps):
+    """Full-width See3D priors with seeded random weights, built on the card:
+    the MV-UNet (its zero-init layers re-drawn from a seeded normal, so every
+    transformer's output reaches the result), the VAE and both CLIP towers.
+    Returns (Priors, layers re-drawn)."""
+    import torch
+
+    from g4splat_torch.pipeline.see3d_stage import Priors
+    from g4splat_torch.priors.clip_text import CLIPText, CLIPTextEmbedder
+    from g4splat_torch.priors.clip_vision import CLIPImageEmbedder, CLIPVision
+    from g4splat_torch.priors.see3d import DDIMConfig, MultiViewUNet, See3DPipeline, UNetConfig
+    from g4splat_torch.priors.vae import AutoencoderKL
+
+    torch.manual_seed(seed)
+    with torch.device(DEVICE):
+        unet = MultiViewUNet(UNetConfig(**SEE3D_MODELS["unet"])).eval()
+        vae = AutoencoderKL(**SEE3D_MODELS["vae"]).eval()
+        cv = CLIPVision(**SEE3D_MODELS["clip_vision"]).eval()
+        ct = CLIPText(**SEE3D_MODELS["clip_text"]).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    redrawn = 0
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith(("proj_out.weight", "out_layers.3.weight", "out.2.weight")):
+                p.normal_(0.0, 0.5 / p[0].numel() ** 0.5, generator=gen)
+                redrawn += 1
+    n_params = sum(p.numel() for m in (unet, vae, cv, ct) for p in m.parameters())
+    print(f"  priors: {n_params / 1e6:.1f}M parameters (UNet "
+          f"{sum(p.numel() for p in unet.parameters()) / 1e6:.1f}M); {redrawn} zero-init "
+          f"layers re-drawn")
+    return Priors(see3d=See3DPipeline(unet, DDIMConfig(num_steps=n_steps)), vae=vae,
+                  image_embedder=CLIPImageEmbedder(cv), text_embedder=CLIPTextEmbedder(ct))
+
+
+def see3d_inputs(scene, n_ref, n_warp, res):
+    """Reference images and warps rendered by B1 at res x res from orbit
+    cameras around `scene`, and the warps' masks (rend_alpha > 0.5, standing
+    in for the novel-view visibility mask)."""
+    import torch
+
+    from g4splat_torch.core.cameras import lookat_camera
+    from g4splat_torch.ops.rasterize import render
+
+    cams = [lookat_camera([6.5 * np.sin(a), -0.8, -6.5 * np.cos(a)], [0, 0, 0], [0, -1, 0],
+                          fx=600.0 * res / 768, fy=600.0 * res / 768, width=res, height=res,
+                          device=DEVICE)
+            for a in np.linspace(0, 2 * np.pi, n_ref + n_warp, endpoint=False)]
+    with torch.no_grad():
+        outs = [render(c, scene, backend="cuda", need_aux=False) for c in cams]
+    images = [torch.clamp(o["render"], 0.0, 1.0) for o in outs]
+    masks = [(o["rend_alpha"] > 0.5).to(torch.float32) for o in outs[n_ref:]]
+    return torch.stack(images[:n_ref]), images[n_ref:], masks
+
+
+def profile_unet_call(call, top=8):
+    """One UNet call under torch.profiler: device time by kernel (the top
+    `top`, and B3's share), and the device's busy share of the call's wall
+    time (CUDA events). A diagnostic: prints "not measured" if the profiler
+    records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE == "cuda" else [])
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=activities) as prof:
+            ev[0].record()
+            call()
+            ev[1].record()
+            ev[1].synchronize()
+    except RuntimeError as e:      # a diagnostic only: the checks do not read it
+        print(f"  UNet call profile: torch.profiler failed ({e}); not measured")
+        return
+    wall = ev[0].elapsed_time(ev[1])
+    # Device-side events only (kernels, copies): a CPU op's device time
+    # repeats that of the kernels it launched.
+    rows = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA),
+                  reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print("  UNet call profile: no device time recorded (not measured)")
+        return
+    b3 = sum(r[0] for r in rows if "attention_fwd" in r[2])
+    print(f"  UNet call profile (torch.profiler): wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %); B3 {b3:.1f} ms "
+          f"({100 * b3 / busy:.1f} % of device time)")
+    for t, n, key in rows[:top]:
+        print(f"      {t:9.2f} ms  x{n:<4d} {key[:110]}")
+
+
+def see3d_split(priors, refs, warps, masks, n_ref, reps=3):
+    """Phase 12: the stage's parts run in turn by the functions
+    run_see3d_inpaint calls, each between CUDA events: the CLIP towers, the
+    VAE encode of every frame, UNet calls at the stage's shape (mean of
+    `reps`), the DDIM loop with B3 and with plain attention, the VAE decode,
+    with TF32 off as run_see3d_inpaint runs them. Returns ({part: ms},
+    latents with B3, latents with plain attention)."""
+    import torch
+
+    from g4splat_torch.device import fp32_math
+    from g4splat_torch.ops.attention import chunked_attention
+
+    pipe, vae = priors.see3d, priors.vae
+    ms = {}
+
+    def timed(name, fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        ev[1].synchronize()
+        ms[name] = ev[0].elapsed_time(ev[1])
+        return out
+
+    with torch.no_grad(), fp32_math():
+        ctx_img = timed("CLIP image tower", lambda: priors.image_embedder(refs[0]))
+        priors.text_embedder._empty = None          # time the tower, not its cache
+        ctx_txt = timed("CLIP text tower", lambda: priors.text_embedder())
+        frames = torch.cat([refs, torch.stack(warps)])
+        f = vae.factor
+        z = timed("VAE encode", lambda: vae.encode(frames.permute(0, 3, 1, 2) * 2.0 - 1.0))
+        m = torch.cat([torch.ones((n_ref,) + masks[0].shape, device=DEVICE),
+                       torch.stack(masks)])[:, None, ::f, ::f]
+        ctx = (ctx_txt + ctx_img).repeat(len(frames), 1, 1)
+        n = len(frames)
+        inp = torch.cat([z, z, m], 1).repeat(2, 1, 1, 1)
+        t_vec = torch.full((2 * n,), 999, dtype=torch.int64, device=DEVICE)
+        timed("UNet call", lambda: [pipe.unet(inp, t_vec, ctx.repeat(2, 1, 1), num_frames=n)
+                                    for _ in range(reps)])
+        ms["UNet call"] /= reps
+        profile_unet_call(lambda: pipe.unet(inp, t_vec, ctx.repeat(2, 1, 1), num_frames=n))
+        noise = pipe.draw_noise(z.shape, DEVICE, torch.Generator(device=DEVICE).manual_seed(1000))
+        lat = timed("DDIM loop", lambda: pipe.inpaint_latents(z, m, ctx, gt_num=n_ref,
+                                                              noise=noise))
+        lat_p = timed("DDIM loop, plain attention", lambda: pipe.inpaint_latents(
+            z, m, ctx, gt_num=n_ref, noise=noise, attention=chunked_attention))
+        timed("VAE decode", lambda: vae.decode(lat[n_ref:]))
+    return ms, lat, lat_p
 
 
 def main():
@@ -550,14 +865,13 @@ def main():
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
     nvcc = [l for l in run([cuda_build._nvcc(), "--version"]).splitlines() if "release" in l]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     print(f"  device {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}), "
           f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
     print(f"  nvcc: {nvcc[0] if nvcc else 'unknown'}")
     print(f"  nvidia-smi name, power.limit: {smi}")
-    print("  TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+    print(f"  PyTorch's TF32 flags (matmul, cuDNN) {tf32}; the port's entry points "
+          f"(train_step, run_see3d_inpaint) turn both off while they run")
 
     print("== phase 2: build")
     t0 = time.perf_counter()
@@ -795,6 +1109,83 @@ def main():
             print(f"  B2 [{mode}] kernel {k_ms:.4f} ms  plain {p_ms:.2f} ms  bound "
                   f"{bound:.4f} ms ({by}); B1 [{mode}] at this shape {f_ms:.4f} ms")
     print("  B2 library_ms: none (no single PyTorch call computes this function)")
+
+    print("== phase 10: B3 (attention) vs its plain version (chunked_attention); "
+          f"tolerance max|kernel - plain| <= {B3_TOL} * max|plain|")
+    del trainer, views8, b8, e8, runs8
+    torch.cuda.empty_cache()
+    from g4splat_torch.ops import attention_cuda
+    from g4splat_torch.ops.attention import chunked_attention
+    from g4splat_torch.pipeline.see3d_stage import run_see3d_inpaint
+
+    n_ref, n_warp, res, n_steps = SEE3D_SHAPE
+    n_frames = n_ref + n_warp
+    priors = see3d_priors(3, n_steps)
+    ucfg = priors.see3d.unet.cfg
+    n_calls = len(priors.see3d.sampler.timesteps)
+    main_launches = b3_main_launches(ucfg, n_frames, res // priors.vae.factor, n_calls)
+    rows10, err10 = attention_vs_plain(main_launches)
+
+    print(f"== phase 11: See3D main path, full width: {n_ref} references + {n_warp} warps "
+          f"at {res}x{res}, DDIM {n_steps} steps")
+    refs, warps, masks = see3d_inputs(scene, n_ref, n_warp, res)
+    print(f"  inputs rendered by B1 from the phase-4 scene; visible share of each warp "
+          + " ".join(f"{float(m.mean()):.3f}" for m in masks))
+    print(f"  timesteps {priors.see3d.sampler.timesteps.tolist()}: {n_calls} UNet calls over "
+          f"{2 * n_frames} frames (cond + uncond)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rasterize_cuda.RASTERIZE_FWD.launches = 0
+    rasterize_cuda_bwd.RASTERIZE_BWD.launches = 0
+    attention_cuda.ATTENTION_FWD.launches = 0
+    tf32_seen = set()
+    spy = priors.see3d.unet.register_forward_pre_hook(lambda *_: tf32_seen.add(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    t0 = time.perf_counter()
+    outs11, _ = run_see3d_inpaint(priors, refs, n_ref, warps, masks, stage=1,
+                                  mvd_resolution=res, device=DEVICE)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    spy.remove()
+    check(tf32_seen == {(False, False)} and tf32 == (torch.backends.cuda.matmul.allow_tf32,
+                                                     torch.backends.cudnn.allow_tf32),
+          f"the stage ran the UNet with TF32 (matmul, cuDNN) {sorted(tf32_seen)} (off "
+          f"expected) and gave back the caller's flags {tf32}")
+    launches11 = attention_cuda.ATTENTION_FWD.launches
+    peak11 = torch.cuda.max_memory_allocated() / 2**30
+    expect = 2 * ucfg.n_transformer_blocks() * n_calls
+    check(launches11 == expect == sum(main_launches.values()),
+          f"See3D stage launched B3 {launches11} times ({expect} expected: "
+          f"{2 * ucfg.n_transformer_blocks()} per UNet call x {n_calls} calls)")
+    check((rasterize_cuda.RASTERIZE_FWD.launches, rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+          == (0, 0), "See3D stage launched no rasterizer kernel")
+    check(len(outs11) == n_warp and all(o.shape == (res, res, 3) and bool(torch.isfinite(o).all())
+                                        for o in outs11),
+          f"{n_warp} finite ({res}, {res}, 3) images")
+    print(f"  stage {stage_ms:.1f} ms (host clock, synchronized); peak memory {peak11:.2f} GiB")
+    outs11p, _ = run_see3d_inpaint(priors, refs, n_ref, warps, masks, stage=1,
+                                   mvd_resolution=res, attention=chunked_attention,
+                                   device=DEVICE)
+    torch.cuda.synchronize()
+    d_img = max(float((a - b).abs().max()) for a, b in zip(outs11, outs11p))
+    spread = float(torch.stack(outs11p).std())
+    check(d_img <= SEE3D_IMG_TOL,
+          f"See3D images with B3 vs plain attention: max|d| {d_img:.2e} <= {SEE3D_IMG_TOL} "
+          f"(plain images' std {spread:.3f})")
+    check(max(float((o - w).abs().mean()) for o, w in zip(outs11, warps)) > 1e-2,
+          "the stage's images differ from its warps")
+
+    print("== phase 12: See3D timing")
+    torch.cuda.reset_peak_memory_stats()
+    split12, lat_k, lat_p = see3d_split(priors, refs, warps, masks, n_ref)
+    gen_k, gen_p = lat_k[n_ref:], lat_p[n_ref:]
+    r12 = float((gen_k - gen_p).norm() / gen_p.norm())
+    check(bool(torch.isfinite(lat_k).all()) and r12 <= SEE3D_LAT_TOL,
+          f"DDIM latents with B3 vs plain attention (generated frames): ||d|| / ||plain|| "
+          f"{r12:.2e} <= {SEE3D_LAT_TOL} (||plain|| {float(gen_p.norm()):.3e})")
+    print("  split ms (CUDA events): " + "; ".join(f"{k} {v:.1f}" for k, v in split12.items()))
+    print(f"  stage total {stage_ms:.1f} ms; peak memory over the split "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -807,13 +1198,20 @@ def main():
     fwd, bwd = rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD
     # B2: the training path's production mode (no distortion).
     k_ms, p_ms, bound8, by8 = rows8["nodist"]
+    # B3: the See3D self-attention at full resolution, the main path's
+    # largest shape.
+    att = attention_cuda.ATTENTION_FWD
+    a_ms, a_plain, a_lib, a_bound, a_by = rows10[B3_SHAPES[0]]
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
          "launches": launches + launches8[0], "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
          "launches": launches8[1], "max_abs_err": max_abs_err_bwd, "ms": k_ms,
-         "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None}]}))
+         "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},
+        {"name": att.name, "route": "cuda", "source": att.source, "replaces": att.replaces,
+         "launches": launches11, "max_abs_err": err10, "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

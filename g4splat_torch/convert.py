@@ -6,11 +6,17 @@ numpy arrays.
 `scene_from` / `camera_from` read those fields off any object that has them
 (through ``np.asarray``), and `train_config_from` / `views_from` do the same
 for `TrainConfig` and `ViewData`, so the port never imports the JAX package.
+
+`flax_state_dict` turns the flax params of the JAX package's prior networks
+(`MultiViewUNet`, `AutoencoderKL`, `CLIPVision`, `CLIPText`) into the state
+dicts of the port's modules of the same names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from typing import Dict
 
 import numpy as np
 import torch
@@ -80,3 +86,37 @@ def views_from(obj, device: DeviceLike = None) -> ViewData:
     dev = resolve_device(device)
     return ViewData(*(torch.as_tensor(np.array(getattr(obj, k), np.float32), device=dev)
                       for k in ViewData._fields))
+
+
+def _torch_name(segment: str) -> str:
+    """A flax module name as a torch state-dict path: indices become path
+    parts (``input_blocks_1_1`` → ``input_blocks.1.1``,
+    ``down_blocks_0_downsamplers_0_conv`` → ``down_blocks.0.downsamplers.0.conv``,
+    ``ff_net_0_proj`` → ``ff.net.0.proj``)."""
+    segment = re.sub(r"(\d)_", r"\1.", re.sub(r"_(\d+)", r".\1", segment))
+    return segment.replace("ff_net", "ff.net")
+
+
+def flax_state_dict(params) -> Dict[str, torch.Tensor]:
+    """Flax params (nested dicts of arrays, with or without the top-level
+    ``"params"``) → a torch state dict. Each inverts the JAX converters'
+    layout rule: a conv kernel (kh, kw, I, O) → weight (O, I, kh, kw), a dense
+    kernel (I, O) → weight (O, I), a norm's scale → weight; biases and bare
+    parameters (embeddings) keep their names and layout."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for name, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + [_torch_name(name)])
+                continue
+            v = np.array(value, np.float32)
+            if name == "kernel":
+                name, v = "weight", v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+            elif name == "scale":
+                name = "weight"
+            out[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(v))
+
+    walk(params, [])
+    return out

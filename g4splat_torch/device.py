@@ -1,8 +1,10 @@
-"""Device selection shared by every entry point of the port."""
+"""Device selection and arithmetic precision shared by every entry point of
+the port."""
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -18,3 +20,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "g4splat_torch: no CUDA device is available; pass device='cpu' "
             "to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_math() -> Iterator[None]:
+    """Run the block with TF32 off in cuBLAS matmuls and cuDNN convolutions,
+    and restore the caller's settings after. The port computes in fp32, as
+    the JAX package does; PyTorch lets cuDNN convolutions use TF32 unless
+    told otherwise. Usable as a decorator."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("rasterize_fwd", "rasterize_bwd")
+SOURCES = ("rasterize_fwd", "rasterize_bwd", "attention_fwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

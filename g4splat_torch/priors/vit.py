@@ -1,0 +1,70 @@
+"""Vision-Transformer building blocks (counterpart of the part of
+`g4splat_tpu.priors.vit` that the CLIP towers use).
+
+Pre-LN blocks with fused-qkv attention and an exact-GELU MLP; LayerNorms use
+ε = 1e-6, as the JAX package's flax defaults do (ROADMAP C6). Attention here
+is dense softmax attention in plain PyTorch, as the JAX package leaves it to
+``jax.nn.dot_product_attention``. RoPE, cross-attention, the CroCo decoder
+block and the patch embedding belong to the MASt3R / DINOv2 slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from g4splat_torch.core.resize import resize_bilinear
+from g4splat_torch.ops.attention import dot_product_attention_plain
+
+LN_EPS = 1e-6
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Erf-based GELU (torch nn.GELU's default)."""
+    return F.gelu(x)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        B, N, C = x.shape
+        q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, C // self.num_heads).unbind(2)
+        return self.proj(dot_product_attention_plain(q, k, v).reshape(B, N, C))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+def interpolate_pos_embed(pos: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+    """Bilinear grid resize of learned position embeddings (N0, C), laid out
+    on a square source grid, to (gh·gw, C)."""
+    n0, c = pos.shape
+    g0 = int(round(n0 ** 0.5))
+    return resize_bilinear(pos.reshape(g0, g0, c), (gh, gw)).reshape(gh * gw, c)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from g4splat_torch.core.cameras import Camera
+from g4splat_torch.device import fp32_math
 from g4splat_torch.models.gaussians import GaussianScene
 from g4splat_torch.ops.rasterize import render
 from g4splat_torch.ops.rasterize_common import RenderConfig
@@ -234,6 +235,7 @@ def losses_from_render(
     return total, aux
 
 
+@fp32_math()
 def train_step(
     scene: GaussianScene,
     optimizer: torch.optim.Adam,
@@ -248,7 +250,8 @@ def train_step(
     """One step on `scene`, whose parameter fields are `optimizer`'s leaves:
     they are updated in place and keep this step's `.grad`. Returns the
     densify statistics (accumulated inside the densify window) and the
-    step's metrics as 0-d tensors."""
+    step's metrics as 0-d tensors. Runs in fp32, TF32 off (the SSIM
+    convolutions)."""
     offset = torch.zeros((scene.capacity, 2), device=scene.device, requires_grad=True)
     loss, aux = compute_losses(scene, camera, view, cfg, iteration, offset, shifts,
                                generator)

@@ -1,5 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, and the cuda
-backend's gradients against the tiled backend's, on the card.
+"""The CUDA kernels against their plain PyTorch versions (B1, B2, B3), and
+the cuda backend's gradients against the tiled backend's, on the card.
 
 Needs a CUDA card and nvcc; skips without them. On a machine with a card,
 from the repository root (the suite's conftest imports JAX, which that
@@ -14,7 +14,8 @@ import torch
 
 from g4splat_torch.core.cameras import lookat_camera
 from g4splat_torch.models.gaussians import GaussianScene
-from g4splat_torch.ops import rasterize_cuda, rasterize_cuda_bwd
+from g4splat_torch.ops import attention_cuda, rasterize_cuda, rasterize_cuda_bwd
+from g4splat_torch.ops.attention import chunked_attention, memory_efficient_attention
 from g4splat_torch.ops.rasterize import render
 from g4splat_torch.ops.rasterize_common import RenderConfig, preprocess
 from g4splat_torch.ops.rasterize_tiled import bin_splats
@@ -162,3 +163,102 @@ def test_kernel_rejects_mixed_devices(entry_table):
     with pytest.raises(ValueError, match="different devices"):
         rasterize_cuda.rasterize_entries(entries, b.tile_start, b.tile_count,
                                          torch.zeros(3), cam.width, cam.height)
+
+
+# B3 against chunked_attention: max|kernel - plain| <= 1e-4 * max|plain| (fp32
+# sums in another order, exp2 in place of exp).
+B3_TOL = 1e-4
+
+
+# ±30-scaled logits (scores of size ~3000, where one score's fp32 rounding
+# moves near-tied softmax weights) are held at D <= 64: at D = 128 two plain
+# fp32 versions, dense and chunked, already differ by more than the gate
+# there (chip_smoke.py phase 10 prints both; PERF.md).
+CASES = [(n, m, 1.0, d) for n, m in ((50, 33), (1000, 257), (64, 77)) for d in (16, 32, 64, 128)]
+CASES += [(130, 130, 30.0, d) for d in (16, 32, 64)]
+
+
+@pytest.mark.parametrize("N,M,scale,D", CASES)
+def test_attention_kernel_matches_plain(cuda, N, M, scale, D):
+    gen = torch.Generator(device=cuda).manual_seed(N + M + D)
+    q = scale * torch.randn((2, N, 3, D), device=cuda, generator=gen)
+    k = scale * torch.randn((2, M, 3, D), device=cuda, generator=gen)
+    v = torch.randn((2, M, 3, D), device=cuda, generator=gen)
+    before = attention_cuda.ATTENTION_FWD.launches
+    got = attention_cuda.attention_fwd(q, k, v)
+    assert attention_cuda.ATTENTION_FWD.launches == before + 1
+    ref = chunked_attention(q, k, v, q_chunk=128, kv_chunk=96)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= B3_TOL * float(ref.abs().max())
+
+
+def test_attention_kernel_reads_strided_views(cuda):
+    """q, k, v sliced out of one fused (B, N, 3, H, D) projection, as a qkv
+    Linear reshaped gives them: the kernel reads them through their strides."""
+    qkv = torch.randn((2, 300, 3, 4, 64), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(3))
+    q, k, v = qkv.unbind(2)
+    got = attention_cuda.attention_fwd(q, k, v)
+    ref = chunked_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= B3_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float64])
+def test_attention_kernel_refuses_non_f32(cuda, dtype):
+    q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="float32"):
+        attention_cuda.attention_fwd(q, q, q)
+
+
+def test_attention_kernel_refuses_bad_head_dim(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        attention_cuda.attention_fwd(q, q, q)
+
+
+def test_attention_kernel_rejects_mixed_devices(cuda):
+    q = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        attention_cuda.attention_fwd(q, torch.zeros((1, 8, 2, 16)), q)
+
+
+def test_memory_efficient_attention_goes_through_b3(cuda):
+    """Small and large problems alike: on the card every call is B3."""
+    for n in (16, 5000):
+        q = torch.randn((1, n, 2, 32), device=cuda)
+        before = attention_cuda.ATTENTION_FWD.launches
+        out = memory_efficient_attention(q, q, q)
+        assert attention_cuda.ATTENTION_FWD.launches == before + 1
+        assert out.shape == q.shape
+
+
+def test_see3d_stage_runs_b3_on_the_card_and_refuses_host_priors(cuda):
+    """run_see3d_inpaint defaults to the card: priors there run every UNet
+    attention through B3 (2 launches per transformer block and UNet call);
+    card inputs with priors left on the CPU are refused, not moved."""
+    from g4splat_torch.pipeline.see3d_stage import Priors, run_see3d_inpaint
+    from g4splat_torch.priors import see3d, vae
+
+    def priors(device):
+        torch.manual_seed(0)
+        with torch.device(device):
+            unet = see3d.MultiViewUNet(see3d.TINY_UNET).eval()
+            ae = vae.AutoencoderKL(base_ch=16, ch_mult=(1, 2)).eval()
+        return Priors(see3d=see3d.See3DPipeline(unet, see3d.DDIMConfig(num_steps=2)), vae=ae)
+
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.rand(2, 16, 16, 3).astype(np.float32)).to(cuda)
+    warps = [torch.from_numpy(rng.rand(16, 16, 3).astype(np.float32)).to(cuda)
+             for _ in range(2)]
+    masks = [(w[..., 0] > 0.3).float() for w in warps]
+    with pytest.raises(ValueError, match="priors.vae lies on"):
+        run_see3d_inpaint(priors("cpu"), images, 2, warps, masks, 1, mvd_resolution=None)
+    p = priors(cuda)
+    before = attention_cuda.ATTENTION_FWD.launches
+    outs, _ = run_see3d_inpaint(p, images, 2, warps, masks, 1, mvd_resolution=None)
+    calls = len(p.see3d.sampler.timesteps)
+    assert (attention_cuda.ATTENTION_FWD.launches - before
+            == 2 * see3d.TINY_UNET.n_transformer_blocks() * calls)
+    assert all(o.device.type == "cuda" and bool(torch.isfinite(o).all()) for o in outs)

@@ -498,3 +498,23 @@ def test_trainer_densify_and_grow_capacity():
         m = trainer.step()
     assert np.isfinite(m["loss"]) and m["n_alive"] > 30
     assert not np.allclose(alive, 0) and set(moments) == set(ttr.PARAM_FIELDS)
+
+
+def test_train_step_runs_without_tf32(monkeypatch):
+    """train_step's losses (the SSIM convolutions) run with TF32 off whatever
+    the caller set, and the caller's flags come back after the step."""
+    scene, cams, views = port_problem(n_views=1, res=16, n_gauss=10, capacity=16)
+    trainer = ttr.Trainer(scene, cams, views, ttr.TrainConfig(use_depth_order=False))
+    seen = []
+    ssim = ttr.L.ssim
+
+    def spy(*a, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return ssim(*a, **kw)
+
+    monkeypatch.setattr(ttr.L, "ssim", spy)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert np.isfinite(trainer.step()["loss"])
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
