@@ -27,7 +27,9 @@ def fp32_math() -> Iterator[None]:
     """Run the block with TF32 off in cuBLAS matmuls and cuDNN convolutions,
     and restore the caller's settings after. The port computes in fp32, as
     the JAX package does; PyTorch lets cuDNN convolutions use TF32 unless
-    told otherwise. Usable as a decorator."""
+    told otherwise. Usable as a decorator. Kernel B3's TF32 instructions do
+    not read these flags: it splits every fp32 operand into two TF32 parts
+    and takes three products (3xTF32), which keeps fp32 accuracy."""
     matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     saved = matmul.allow_tf32, cudnn.allow_tf32
     matmul.allow_tf32 = cudnn.allow_tf32 = False

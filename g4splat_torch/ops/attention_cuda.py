@@ -2,12 +2,16 @@
 and its wrapper.
 
 B3 replaces `g4splat_tpu/ops/attention.py::_tpu_flash`, the flash-attention
-Pallas kernel that ships with JAX. It computes softmax(QKᵀ/√D)V in fp32 with
-an online softmax and never materialises the logits. What bounds it on an
-H100: `FLOPS_PER_PAIR_PER_DIM`·D fp32 operations per (query, key) pair
-against each of q, k, v and the output moved once, so the arithmetic binds at
-every See3D shape (PERF.md). No caller differentiates attention (See3D only
-runs inference), so B3 has no backward kernel.
+Pallas kernel that ships with JAX. It computes softmax(QKᵀ/√D)V at fp32
+accuracy with an online softmax and never materialises the logits. For the
+head widths in `TC_HEAD_DIMS` it runs on the tensor cores, every product as
+`TF32_PRODUCTS` TF32 products of a hi/lo split of its fp32 operands (3×TF32);
+the others run in fp32 on the CUDA cores. What bounds it on an H100:
+`FLOPS_PER_PAIR_PER_DIM`·D operations per (query, key) pair, times
+`TF32_PRODUCTS` on the tensor cores, and one exp2 per pair, against each of
+q, k, v and the output moved once, so the arithmetic binds at every See3D
+self-attention shape (PERF.md). No caller differentiates attention (See3D
+only runs inference), so B3 has no backward kernel.
 
 `attention_fwd` takes CUDA tensors only: it launches the kernel or raises.
 `attention.memory_efficient_attention` is the dispatcher that sends CUDA
@@ -28,8 +32,12 @@ ATTENTION_FWD = KernelInfo(
     replaces="g4splat_tpu/ops/attention.py:109",
 )
 HEAD_DIMS = (16, 32, 64, 128)
+# Head widths that run on the tensor cores (the rest on the CUDA cores).
+TC_HEAD_DIMS = (64,)
 # QKᵀ and PV: one multiply and one add per dimension each.
 FLOPS_PER_PAIR_PER_DIM = 4
+# TF32 products per fp32 product in the 3×TF32 split (lo·hi, hi·lo, hi·hi).
+TF32_PRODUCTS = 3
 
 
 def _check_inputs(q, k, v):

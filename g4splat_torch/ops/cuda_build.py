@@ -3,7 +3,9 @@ shared libraries with nvcc and loads them with ctypes.
 
 Each source compiles on its own (seconds, no PyTorch headers) into
 ``build/kernels/`` at the repository root, under a name that carries a hash of
-the source and flags, so an edited source is never served a stale library.
+the source, every header beside it (``csrc/*.cuh``), the flags and the headers
+of every include directory the flags name, so an edited source or header is
+never served a stale library.
 Nothing is built at import: the first call that needs a kernel builds it.
 `KernelInfo` records each kernel's source, the TPU kernel it replaces, and
 the launches its wrapper counts.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass
@@ -46,10 +49,19 @@ def _nvcc() -> str:
     return path
 
 
+def _include_dirs() -> list:
+    return [Path(f[2:]) for f in NVCC_FLAGS if f.startswith("-I")]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    headers = [(CSRC, p) for p in sorted(CSRC.glob("*.cuh"))]
+    for d in _include_dirs():
+        headers += [(d, p) for p in sorted(d.rglob("*")) if p.suffix in (".h", ".hpp", ".cuh")]
+    for base, p in headers:
+        h.update(str(p.relative_to(base)).encode() + p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -81,6 +93,26 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         log = _target(name).with_suffix(".log")
         logs[name] = log.read_text() if log.exists() else ""
     return logs
+
+
+def sass_mma_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """Tensor-core instructions per kernel function in the built library of
+    `csrc/<name>.cu`, from ``cuobjdump -sass``: {function: {"HMMA": n,
+    "HGMMA": n}} (`mma.sync` and `wgmma`)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found (looked on PATH and /usr/local/cuda/bin)")
+    sass = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True,
+                          text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        if line.strip().startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn and (m := re.search(r"\b(HGMMA|HMMA)\.", line)):
+            counts[fn][m.group(1)] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -132,3 +132,62 @@ def test_wrapper_rejects_mixed_devices():
     k = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="different devices"):
         attention_cuda.attention_fwd(q, k, k)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on an fp32 tensor: keep 10 mantissa bits, rounding
+    to nearest with ties away from zero (on the int32 view)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, products):
+    """a @ b as B3 takes it on the tensor cores: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi), then lo·hi + hi·lo + hi·hi
+    (products=3), or hi·hi alone (products=1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if products == 1:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _attention_tf32(q, k, v, products=3, kv_chunk=64):
+    """B3's arithmetic on the CPU: the online softmax over 64-key tiles with
+    q·fp32(1/√D), exp2((s - m)·log2 e), and both products split."""
+    B, N, H, D = q.shape
+    qs = q.permute(0, 2, 1, 3) * (1.0 / D ** 0.5)
+    kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    m = torch.full((B, H, N), TA._NEG_INF)
+    l = torch.zeros((B, H, N))
+    acc = torch.zeros((B, H, N, D))
+    log2e = 1.4426950408889634
+    for m0 in range(0, k.shape[1], kv_chunk):
+        s = _mm_tf32(qs, kf[:, :, m0:m0 + kv_chunk].transpose(-1, -2), products)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2((s - m_new[..., None]) * log2e)
+        corr = torch.exp2((m - m_new) * log2e)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mm_tf32(p, vf[:, :, m0:m0 + kv_chunk], products)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("N,D,scale", [(200, 16, 1.0), (256, 64, 1.0), (150, 128, 1.0),
+                                       (130, 16, 30.0), (160, 64, 30.0)])
+def test_tf32_split_keeps_fp32_accuracy(N, D, scale):
+    """The precision B3's tensor-core path rests on. At scale 1 the 3xTF32
+    split stays within the card gate, 1e-4·max|plain| of chunked_attention,
+    where one TF32 product per fp32 product does not. At ±30 logits it is
+    graded against float64, with the fp32 plain version's own distance from
+    float64 (×1.5) as the yardstick, as the card tests grade B3 there."""
+    q, k, v = t(*qkv(1, N, N, 2, D, N + D, scale=scale))
+    plain = TA.chunked_attention(q, k, v)
+    got = _attention_tf32(q, k, v)
+    if scale == 1.0:
+        tol = 1e-4 * float(plain.abs().max())
+        assert float((got - plain).abs().max()) <= tol
+        assert float((_attention_tf32(q, k, v, products=1) - plain).abs().max()) > tol
+    else:
+        s = torch.einsum("bnhd,bmhd->bhnm", q.double(), k.double()) / D ** 0.5
+        ref = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(s, -1), v.double())
+        tol = max(1e-4 * float(ref.abs().max()), 1.5 * float((plain - ref).abs().max()))
+        assert float((got - ref).abs().max()) <= tol
