@@ -18,13 +18,16 @@ Phases (any failure exits non-zero and prints no result line):
      version in both modes (B1's saved aux, seeded random cotangents), on
      the 8k-splat "spread" and "deep-overlap" scenes at 256x192
      (fx = fy = 220), and on the spread scene seen from close by, where the
-     distortion map is large;
+     distortion map is large; on each, no contributing pair outside its
+     entry's reach box, and (deep-overlap too) B2's work list vs its plain
+     version; B2's time;
   4. the render main path: a 200k-splat scene at SH degree 3, written to PLY
      and read back, rendered by render(backend="cuda") from 8 orbit cameras
      at 768x576 with need_aux=False and again with compute_distortion=False;
      B1's launch count must rise by exactly 16;
   5. one frame of a 2.4M-splat scene at 512x384: B1 in all three modes and
-     B2 in both, against their plain versions;
+     B2 in both, against their plain versions; no contributing pair outside
+     its reach box in either mode; B2's time;
   6. render timings: B1, the whole render() and its stages, the plain
      version, B1's bound, peak memory;
   7. whole-chain gradients: render(backend="cuda") (B1 + B2 in one autograd
@@ -36,11 +39,15 @@ Phases (any failure exits non-zero and prints no result line):
      TrainConfig's production defaults; 30 Trainer.step() calls with a
      densify window (densify at 10, 20, 30), then 5 with lambda_dist > 0;
      finite losses, loss down and PSNR up over the view cycle, and exactly
-     one B1 and one B2 launch per step;
+     one B1 and one B2 launch per step; no contributing pair outside its
+     reach box on the trained scene;
   9. training timings: the median step and its split (forward render,
-     losses, backward, Adam, densify); B2 vs its plain version, and its time
-     beside its bound and the plain version's, at the training shape (the
-     first step's scene); peak memory.
+     losses, backward, Adam, densify); at the training shape (the first
+     step's scene): B2's per-tile walk lengths, its walk kernel's registers
+     and resident blocks, the (warp, entry) steps its reach boxes skip (none
+     holding a contributor), its work list and its gradients vs their plain
+     versions, and its time (whole call) beside its bound and the plain
+     version's; peak memory.
  10. B3 vs its plain version (chunked_attention) at every attention shape of
      the See3D main path, at odd shapes and at D = 128: max|kernel - plain|
      <= B3_TOL * max|plain|, with the dense plain version's error beside
@@ -283,6 +290,23 @@ def tile_reads(n_walked, w, h):
     return int(pad.reshape(gy, TILE, gx, TILE).amax(dim=(1, 3)).sum())
 
 
+def walk_histogram(args):
+    """B2's per-tile walk lengths on its inputs `args`, min(deepest n_contrib
+    in the tile, tile count), as {"max", "mean", "p50", "p90", "p99",
+    "over_2x_mean", "tiles"}."""
+    import torch
+
+    from g4splat_torch.ops.rasterize_cuda_bwd import tile_walks
+
+    walk = tile_walks(args[4], args[3], args[7], args[8]).to(torch.float64)
+    q = torch.quantile(walk, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                          device=walk.device))
+    mean = float(walk.mean())
+    return {"max": float(walk.max()), "mean": mean, "p50": float(q[0]), "p90": float(q[1]),
+            "p99": float(q[2]), "over_2x_mean": int((walk > 2 * mean).sum()),
+            "tiles": walk.numel()}
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     import torch
 
@@ -462,6 +486,89 @@ def bwd_bound(stats, w, h, n_tiles, want_dist):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_activity(tag, args):
+    """B2's (warp, entry) steps at these inputs, from the plain version's
+    intersections: walked (8 warps per tile entry), with a lane inside its
+    n_contrib, with a contributing lane, and skipped by the entries' reach
+    boxes (rasterize_cuda_bwd.reach_boxes). Checks that no contributing
+    (entry, pixel) pair lies outside its entry's box: the box lets a warp
+    skip an entry, and a skipped contributor would corrupt its pixel's
+    walk without a trace. Returns the counts."""
+    from g4splat_torch.ops import rasterize_cuda_bwd as bwd
+
+    entries, gid, tile_start, tile_count, aux, cot, bg, w, h = args[:9]
+    gx, aux_t, cot_t, walk, ent, order, bg = bwd._plain_setup(
+        entries, gid, tile_start, tile_count, aux, cot, bg, w, h, 0.2, 100.0)
+    box = bwd.reach_boxes(entries)
+    n = dict(walked=0, active=0, contributing=0, skipped=0, outside=0)
+    for b0 in range(0, order.numel(), 64):
+        t = order[b0:b0 + 64]
+        b = bwd._Batch(t, gx, tile_start, walk[t], aux_t, cot_t, bg)
+        last = int(b.last.max())
+        for lo in range(0, last, 64):
+            pos, idx, _, _, _, _, contrib, _, _, _ = ent.chunk(b, lo, min(lo + 64, last))
+            nb, K = contrib.shape[:2]
+            inside = (pos[None, :] < b.last[:, None])[..., None]         # (nb, K, 1)
+            bx = box[idx]
+            px, py = b.px[:, None, :].double(), b.py[:, None, :].double()
+            in_box = ((px >= bx[..., 0:1]) & (px <= bx[..., 1:2])
+                      & (py >= bx[..., 2:3]) & (py <= bx[..., 3:4]))
+            n["outside"] += int((contrib & ~in_box & inside).sum())
+            wx = b.px.view(nb, 8, 32)[..., 0][:, None].double()
+            wy = b.py.view(nb, 8, 32)[..., 0][:, None].double()
+            reach = ((bx[..., 0:1] <= wx + 15) & (bx[..., 1:2] >= wx)
+                     & (bx[..., 2:3] <= wy + 1) & (bx[..., 3:4] >= wy))     # (nb, K, 8)
+            live = (pos[None, :, None] < b.nc[:, None, :]).view(nb, K, 8, 32).any(-1) & inside
+            n["walked"] += int(inside.sum()) * 8
+            n["active"] += int(live.sum())
+            n["contributing"] += int((contrib.view(nb, K, 8, 32).any(-1) & inside).sum())
+            n["skipped"] += int((live & ~reach).sum())
+    check(n["outside"] == 0, f"{tag}: every contributing (entry, pixel) pair lies inside the "
+          f"entry's reach box ({n['outside']} outside)")
+    print(f"  {tag}: (warp, entry) steps walked {n['walked']}, with a lane inside n_contrib "
+          f"{n['active']}, with a contributing lane {n['contributing']}, skipped by the reach "
+          f"boxes {n['skipped']} ({100 * n['skipped'] / max(n['active'], 1):.1f} % of the active)")
+    return n
+
+
+def b2_ms(args, want_dist, reps=10):
+    """B2's whole backward call (rasterize_backward: the gradient buffer,
+    tile walks, tile order and walk), timed by CUDA events."""
+    from g4splat_torch.ops import rasterize_cuda_bwd as bwd
+
+    return cuda_ms(lambda: bwd.rasterize_backward(*args, want_dist=want_dist), reps=reps)
+
+
+def print_b2_times(tag, runs, w, h, n_tiles):
+    """B2's times in both modes beside its bound."""
+    for want_dist, (args, stats) in runs.items():
+        bound, by = bwd_bound(stats, w, h, n_tiles, want_dist)
+        print(f"  {tag} B2 [{'full' if want_dist else 'nodist'}] {b2_ms(args, want_dist):.4f} "
+              f"ms; bound {bound:.4f} ms ({by})")
+
+
+def worklist_vs_plain(tag, args, want_dist):
+    """B2's work list against its plain version on the same card tensors: the
+    tile walks equal, and the tiles taken in the buckets of tile_order_plain
+    (the order within a bucket varies with the atomics)."""
+    import torch
+
+    from g4splat_torch.ops import rasterize_cuda_bwd as bwd
+
+    n_tiles = args[3].numel()
+    grad = torch.zeros((args[9], bwd.GRAD_F), device=DEVICE)
+    got = bwd.worklist(bwd.launch_backward(args[:9], grad, want_dist=want_dist), n_tiles)
+    walk = bwd.tile_walks(args[4], args[3], args[7], args[8])
+    ref = bwd.tile_order_plain(walk)
+    bucket = bwd.walk_buckets(walk)
+    same = (torch.equal(got["walk"].long(), walk)
+            and torch.equal(torch.sort(got["order"])[0], torch.sort(ref)[0])
+            and torch.equal(bucket[got["order"].long()], bucket[ref.long()]))
+    check(same, f"{tag} B2 [{'full' if want_dist else 'nodist'}] work list (tile walks, "
+          f"{ref.numel()} of {n_tiles} tiles longest first by {bwd.NBUCKET} buckets) equals "
+          f"its plain version")
 
 
 def chain_gradients():
@@ -982,7 +1089,10 @@ def main():
             print(f"  {tag}: {entries.shape[0]} entries, densest tile "
                   f"{int(b.tile_count.max())}")
             _, seen = kernel_vs_plain(tag, b, entries, w3, h3)
-            bwd_vs_plain(tag, b, entries, w3, h3, scene.capacity)
+            runs3 = bwd_vs_plain(tag, b, entries, w3, h3, scene.capacity)
+            walk_activity(tag, runs3[False][0])
+            worklist_vs_plain(tag, runs3[True][0], True)
+            print_b2_times(tag, runs3, w3, h3, b.tile_count.numel())
             cpu = render(cam3.to("cpu"), scene.to("cpu"), backend="cuda")
             gpu = render(cam3, scene, backend="cuda")
         check(int(cpu["n_dropped"]) == int(gpu["n_dropped"]),
@@ -1041,7 +1151,11 @@ def main():
         b5, e5 = kernel_inputs(cam5, big)
         print(f"  {e5.shape[0]} entries, densest tile {int(b5.tile_count.max())}")
         work5, _ = kernel_vs_plain("production", b5, e5, w5, h5)
-        bwd_vs_plain("production", b5, e5, w5, h5, big.capacity)
+        runs5 = bwd_vs_plain("production", b5, e5, w5, h5, big.capacity)
+        for want_dist, (args5, _) in runs5.items():
+            walk_activity(f"production [{'full' if want_dist else 'nodist'}]", args5)
+        print_b2_times("production", runs5, w5, h5, b5.tile_count.numel())
+        del runs5
         out5 = {m: render(cam5, big, RenderConfig(compute_distortion=d), backend="cuda",
                           need_aux=a) for m, (a, d) in MODES.items()}
     check(all(bool(torch.isfinite(v).all()) for o in out5.values() for v in o.values()
@@ -1151,6 +1265,12 @@ def main():
     check(hist[n_steps - 1]["psnr"] > hist[0]["psnr"],
           f"last PSNR {hist[n_steps - 1]['psnr']:.3f} > first {hist[0]['psnr']:.3f}")
     print(f"  peak memory {peak8:.2f} GiB")
+    # B2 skips entries by their reach boxes on every step, so the boxes are
+    # checked on the scene training left too (view 0, seeded cotangents).
+    with torch.no_grad():
+        b8t, e8t = kernel_inputs(camera_at(cams8, 0), trainer.scene)
+        walk_activity("trained scene", bwd_inputs(b8t, e8t, w8, h8, False, 8))
+        del b8t, e8t
 
     print("== phase 9: training timing")
     plain_steps = [t for t, d, dist in step_ms[2:] if not d and not dist]
@@ -1177,8 +1297,18 @@ def main():
         rows8 = {}
         for want_dist, (args, stats) in runs8.items():
             mode = "full" if want_dist else "nodist"
-            k_ms = cuda_ms(lambda: rasterize_cuda_bwd.rasterize_backward(
-                *args, want_dist=want_dist))
+            walks = walk_histogram(args)
+            print(f"  B2 [{mode}] walk per tile (entries): " + ", ".join(
+                f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}" for k, v in walks.items())
+                + f"; max/mean {walks['max'] / walks['mean']:.2f}")
+            info = rasterize_cuda_bwd.kernel_info(want_dist)
+            print(f"  B2 [{mode}] walk kernel on {info['sms']} SMs: {info['registers']} "
+                  f"registers, {info['spill_bytes']} B spilled, {info['shared_bytes']} B "
+                  f"shared, {info['blocks_per_sm']} blocks per SM")
+            if not want_dist:
+                walk_activity("training shape", args)
+            worklist_vs_plain("training shape", args, want_dist)
+            k_ms = b2_ms(args, want_dist)
             p_ms = cuda_ms(lambda: rasterize_cuda_bwd.rasterize_backward_plain(
                 *args, want_dist=want_dist, max_elems=PLAIN_BWD_ELEMS), reps=1, warmup=0)
             bound, by = bwd_bound(stats, w8, h8, b8.tile_count.numel(), want_dist)
@@ -1186,8 +1316,8 @@ def main():
                 args[0], args[2], args[3], args[6], w8, h8, want_aux=True,
                 want_dist=want_dist))
             rows8[mode] = (k_ms, p_ms, bound, by)
-            print(f"  B2 [{mode}] kernel {k_ms:.4f} ms  plain {p_ms:.2f} ms  bound "
-                  f"{bound:.4f} ms ({by}); B1 [{mode}] at this shape {f_ms:.4f} ms")
+            print(f"  B2 [{mode}] kernel {k_ms:.4f} ms (whole call)  plain {p_ms:.2f} ms  "
+                  f"bound {bound:.4f} ms ({by}); B1 [{mode}] at this shape {f_ms:.4f} ms")
     print("  B2 library_ms: none (no single PyTorch call computes this function)")
 
     print("== phase 10: B3 (attention) vs its plain version (chunked_attention); "

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float NEG_INF = -0.7f * 3.402823466e+38f;
@@ -409,11 +411,22 @@ attention_fwd_tc(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The dynamic shared-memory attribute is per device: set it on the current
+// device at its first launch, and remember only a success.
+constexpr int MAX_DEVICES = 64;
+std::atomic<bool> tc_smem_set[MAX_DEVICES];
+
 cudaError_t launch_tc(const float* q, const float* k, const float* v, float* out, int B, int H,
                       int N, int M, const Strides& st, float q_scale, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_fwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, Tc::SMEM);
-  if (attr != cudaSuccess) return attr;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES || !tc_smem_set[dev].load()) {
+    e = cudaFuncSetAttribute(attention_fwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tc::SMEM);
+    if (e != cudaSuccess) return e;
+    if (dev >= 0 && dev < MAX_DEVICES) tc_smem_set[dev].store(true);
+  }
   dim3 grid((N + Tc::QB - 1) / Tc::QB, B * H);
   attention_fwd_tc<<<grid, Tc::THREADS, Tc::SMEM, stream>>>(q, k, v, out, H, N, M, st, q_scale);
   return cudaGetLastError();

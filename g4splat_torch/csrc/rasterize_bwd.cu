@@ -22,35 +22,45 @@
 // (the first such entry of the back-to-front walk). d_center comes only from
 // the 2D low-pass branch (backward.cu:431-432); densify reads it.
 //
-// Design: one 256-thread block per 16x16 tile, one thread per pixel. The block
-// walks the tile's range back to front from its deepest n_contrib, staging
-// BATCH entries at a time into shared memory (T's rows and the low-pass centre
-// computed once). Each thread carries its T and the five suffix sums in
-// registers and skips entries past its own n_contrib. It recomputes the
-// intersection exactly as the forward kernel does (the reference's
-// cross-product form, p = k x l with k = x Tw - Tu, l = y Tw - Tv), so both
-// kernels decide a contributor and the rho3d <= rho2d branch alike, and takes
-// the geometry VJP in the same form (dk = l x dp, dl = dp x k; dTu = -dk,
-// dTv = -dl, dTw = x dk + y dl plus z's direct terms). Each entry's 18
-// per-pixel gradients are reduced over the warp with shuffles (skipped when no
-// lane of the warp contributes) into shared memory; after the batch the block
+// Design: one block of 256 threads, one per pixel, walks a whole tile back to
+// front over the first `walk` entries of its range, walk = min(deepest
+// n_contrib in the tile, tile count). Three launches on the caller's stream,
+// no host sync:
+//   1. tile_walk: one block per tile, its walk;
+//   2. tile_order: one block; the tiles that walk any entry, longest walk
+//      first (a counting sort over NBUCKET lengths), and the tile counter;
+//   3. walk: a persistent grid (SMs x resident blocks) whose blocks take the
+//      next tile of that order from an atomic counter, so the deepest tiles
+//      start first and the short ones fill the end of the grid.
+//
+// Per entry the walk recomputes the intersection exactly as the forward
+// kernel does (the reference's cross-product form, p = k x l with
+// k = x Tw - Tu, l = y Tw - Tv), so both kernels decide a contributor and the
+// rho3d <= rho2d branch alike, and takes the geometry VJP in the same form
+// (dk = l x dp, dl = dp x k; dTu = -dk, dTv = -dl, dTw = x dk + y dl plus z's
+// direct terms). Each entry's 18 per-pixel gradients are reduced over the warp
+// by a fold in 20 shuffles (warp_fold; skipped when no lane of the warp
+// contributes) into shared memory; after a batch of BATCH entries the block
 // sums the eight warps and adds each of the entry's 18 gradients with one
-// atomicAdd into the (P, 18) per-splat buffer at gauss_id. fp32 throughout.
+// atomicAdd into the (P, 18) per-splat buffer at gauss_id. fp32 throughout,
+// but for the reach box: staging computes, in double, a screen box outside
+// which the entry has no pixel with alpha >= 1/255 (reach_box), and a warp
+// whose 16 x 2 pixels miss it skips the entry whole. Staged entries are read
+// as 16-byte broadcasts.
 //
 // What bounds it: per (pixel, entry) pair walked up to the pixel's n_contrib
-// it does ~OPS_PER_PAIR_BWD fp32 operations (the alpha recompute), and per
-// contributor ~OPS_PER_CONTRIB_BWD more (the compositing calculus, the
-// geometry VJP and its share of the 18-value reduction over pixels), against
-// the entries a tile walks (64 B each, plus their ids), the cotangent and aux
-// maps read once, and the gradient rows read-modified-written. The arithmetic
-// on the pairs binds. The design spends no device memory per pair: per-pixel
-// state stays in registers, per-entry terms in shared memory, and the
-// per-entry reduction leaves only 18 atomics per entry that any pixel touched.
+// ~OPS_PER_PAIR_BWD fp32 operations (the alpha recompute), and per contributor
+// ~OPS_PER_CONTRIB_BWD more (the compositing calculus, the geometry VJP and its
+// share of the 18-value reduction over pixels), against the entries a tile
+// walks (64 B each, plus their ids), the cotangent and aux maps read once and
+// the gradient rows read-modified-written. The arithmetic binds.
 //
 // Atomics add in a different order on every run, so the gradients are not
 // bit-stable. nvcc contracts multiply-adds outside the intersection's k and l.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -60,135 +70,333 @@ constexpr int NWARP = NPIX / 32;
 constexpr int BATCH = 32;    // entries staged per round
 constexpr int GRAD_F = 18;   // dT(9) d_center(2) d_opacity d_rgb(3) d_normal(3)
 constexpr int COT_C = 12;    // gC(3) gN(3) gD gA' g_dist g_med pad(2)
+constexpr int ORDER_THREADS = 1024;
+constexpr int NBUCKET = 32;  // walk lengths the tile order tells apart
 constexpr float FILTER_INV_SQUARE = 2.0f;
 constexpr float ALPHA_EPS = 1.0f / 255.0f;
 constexpr float ALPHA_CLAMP = 0.99f;
 constexpr float CUTOFF_SQ = 9.0f;
+constexpr float BOX_MARGIN = 1.0f;   // pixels around an entry's reach box
+constexpr float BIG = 3.0e38f;
 
-template <bool WANT_DIST>
+// The work list, laid out in the caller's int scratch (2 n_tiles + 2 ints).
+struct Work {
+  int* walk;       // (n_tiles,) entries each tile walks
+  int* order;      // (n_tiles,) the tiles that walk any entry, longest first
+  int* counters;   // (2,)       next tile of the order; tiles in the order
+};
+
+Work work_layout(int* iscratch, int n_tiles) {
+  return Work{iscratch, iscratch + n_tiles, iscratch + 2 * n_tiles};
+}
+
+// One batch of entries staged in shared memory, each read by a warp as a
+// few 16-byte broadcasts.
+struct Stage {
+  float4 geo[BATCH][3];    // (Tu0 Tu1 Tu2 Tv0) (Tv1 Tv2 Tw0 Tw1) (Tw2 cx cy opa)
+  float4 col[BATCH][2];    // (r g b nx) (ny nz - -)
+  float4 box[BATCH];       // reach box (x0 x1 y0 y1)
+  int gid[BATCH];
+};
+
+// The screen box (x0, x1, y0, y1) outside which an entry reaches no pixel
+// (rasterize_cuda_bwd.reach_boxes is its plain version). alpha >= 1/255
+// needs rho = min(rho3d, rho2d) <= R = 2 ln(opa * 255). rho2d <= R within
+// sqrt(R / 2) of the low-pass centre; rho3d <= R inside the image of the disk
+// |(u, v)|^2 <= R, which its tangent lines bound (the dual conic
+// M diag(R, R, -1) M^T, as the reference's AABB) when the disk lies on one
+// side of the camera plane, R (Tw0^2 + Tw1^2) < Tw2^2; else the box is
+// unbounded. In double, with R widened by 0.1 % + 1e-3 and the box by
+// BOX_MARGIN pixels, so that fp32 rounding in rho stays inside.
+__device__ float4 reach_box(float Tu0, float Tu1, float Tu2, float Tv0, float Tv1, float Tv2,
+                            float Tw0, float Tw1, float Tw2, float cx, float cy, float opa) {
+  if (!(opa >= ALPHA_EPS)) return make_float4(BIG, -BIG, BIG, -BIG);
+  double R = 2.0 * log(static_cast<double>(opa) / static_cast<double>(ALPHA_EPS));
+  R = fmax(R, 0.0) * 1.001 + 1e-3;
+  const double u0 = Tu0, u1 = Tu1, u2 = Tu2, v0 = Tv0, v1 = Tv1, v2 = Tv2;
+  const double w0 = Tw0, w1 = Tw1, w2 = Tw2;
+  const double a = R * (w0 * w0 + w1 * w1);
+  const double dist = a - w2 * w2;
+  if (!(dist < -1e-6 * (a + w2 * w2))) return make_float4(-BIG, BIG, -BIG, BIG);
+  const double X = (R * (u0 * w0 + u1 * w1) - u2 * w2) / dist;
+  const double Y = (R * (v0 * w0 + v1 * w1) - v2 * w2) / dist;
+  const double hx = sqrt(fmax(X * X - (R * (u0 * u0 + u1 * u1) - u2 * u2) / dist, 0.0));
+  const double hy = sqrt(fmax(Y * Y - (R * (v0 * v0 + v1 * v1) - v2 * v2) / dist, 0.0));
+  const double r2 = sqrt(R / FILTER_INV_SQUARE);
+  return make_float4(static_cast<float>(fmin(cx - r2, X - hx) - BOX_MARGIN),
+                     static_cast<float>(fmax(cx + r2, X + hx) + BOX_MARGIN),
+                     static_cast<float>(fmin(cy - r2, Y - hy) - BOX_MARGIN),
+                     static_cast<float>(fmax(cy + r2, Y + hy) + BOX_MARGIN));
+}
+
+// Threads 0..n-1 stage entries e0..e0+n-1 (the caller syncs after).
+__device__ __forceinline__ void stage_entries(Stage& s, const float4* __restrict__ entries,
+                                              const int* __restrict__ gauss_id, int e0, int n) {
+  if (threadIdx.x < n) {
+    const int e = e0 + threadIdx.x;
+    const float4* row = entries + static_cast<size_t>(e) * 4;
+    const float4 a = row[0], b = row[1], c = row[2], d = row[3];
+    const float Tu0 = a.x, Tu1 = a.y, Tu2 = a.z;
+    const float Tv0 = a.w, Tv1 = b.x, Tv2 = b.y;
+    const float Tw0 = b.z, Tw1 = b.w, Tw2 = c.x;
+    const int j = threadIdx.x;
+    // Low-pass centre from the dual conic, as in the forward kernel.
+    const float cdist = CUTOFF_SQ * (Tw0 * Tw0 + Tw1 * Tw1) - Tw2 * Tw2;
+    const bool cok = fabsf(cdist) > 1e-12f;
+    const float cinv = 1.0f / (cok ? cdist : 1.0f);
+    const float cx = cok ? (CUTOFF_SQ * (Tu0 * Tw0 + Tu1 * Tw1) - Tu2 * Tw2) * cinv : 0.f;
+    const float cy = cok ? (CUTOFF_SQ * (Tv0 * Tw0 + Tv1 * Tw1) - Tv2 * Tw2) * cinv : 0.f;
+    s.geo[j][0] = a;
+    s.geo[j][1] = b;
+    s.geo[j][2] = make_float4(Tw2, cx, cy, c.y);
+    s.col[j][0] = make_float4(c.z, c.w, d.x, d.y);
+    s.col[j][1] = make_float4(d.z, d.w, 0.f, 0.f);
+    s.box[j] = reach_box(Tu0, Tu1, Tu2, Tv0, Tv1, Tv2, Tw0, Tw1, Tw2, cx, cy, c.y);
+    s.gid[j] = gauss_id[e];
+  }
+}
+
+// Whether staged entry j's reach box meets a warp's 16 x 2 pixels, the row
+// pair from (wx, wy): the same answer on every lane of the warp.
+__device__ __forceinline__ bool reaches(const Stage& s, int j, float wx, float wy) {
+  const float4 b = s.box[j];
+  return b.x <= wx + (TILE - 1) && b.y >= wx && b.z <= wy + 1.f && b.w >= wy;
+}
+
+// The ray-surfel intersection of staged entry j at pixel (px, py), as the
+// forward kernel computes it.
+struct Hit {
+  float k0, k1, k2, l0, l1, l2;
+  float inv, su, sv, dx, dy, z, eterm, a_raw, alpha, Tw0, Tw1;
+  bool use3d;
+};
+
+__device__ __forceinline__ bool intersect(const Stage& s, int j, float px, float py,
+                                          float znear, Hit& h) {
+  const float4 g0 = s.geo[j][0], g1 = s.geo[j][1], g2 = s.geo[j][2];
+  const float Tw0 = g1.z, Tw1 = g1.w, Tw2 = g2.x;
+  h.Tw0 = Tw0;
+  h.Tw1 = Tw1;
+  // The forward kernel's intersection, written as there.
+  h.k0 = __fsub_rn(__fmul_rn(px, Tw0), g0.x);
+  h.k1 = __fsub_rn(__fmul_rn(px, Tw1), g0.y);
+  h.k2 = __fsub_rn(__fmul_rn(px, Tw2), g0.z);
+  h.l0 = __fsub_rn(__fmul_rn(py, Tw0), g0.w);
+  h.l1 = __fsub_rn(__fmul_rn(py, Tw1), g1.x);
+  h.l2 = __fsub_rn(__fmul_rn(py, Tw2), g1.y);
+  const float p0 = h.k1 * h.l2 - h.k2 * h.l1;
+  const float p1 = h.k2 * h.l0 - h.k0 * h.l2;
+  const float p2 = h.k0 * h.l1 - h.k1 * h.l0;
+  if (!(fabsf(p2) >= 1e-20f)) return false;
+  h.inv = 1.0f / p2;
+  h.su = p0 * h.inv;
+  h.sv = p1 * h.inv;
+  const float rho3d = h.su * h.su + h.sv * h.sv;
+  h.dx = g2.y - px;
+  h.dy = g2.z - py;
+  const float rho2d = FILTER_INV_SQUARE * (h.dx * h.dx + h.dy * h.dy);
+  h.use3d = rho3d <= rho2d;
+  const float rho = h.use3d ? rho3d : rho2d;
+  h.z = h.use3d ? h.su * Tw0 + h.sv * Tw1 + Tw2 : Tw2;
+  h.eterm = expf(-0.5f * rho);
+  h.a_raw = g2.w * h.eterm;
+  h.alpha = fminf(ALPHA_CLAMP, h.a_raw);
+  return h.z >= znear && h.alpha >= ALPHA_EPS;
+}
+
+// 1. walk[tile] = min(max n_contrib over the tile's pixels, tile count).
 __global__ void __launch_bounds__(NPIX)
-rasterize_bwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
-                     const int* __restrict__ gauss_id,     // (E,)
-                     const int* __restrict__ tile_start,   // (n_tiles,)
-                     const int* __restrict__ tile_count,   // (n_tiles,)
-                     const float4* __restrict__ aux,       // (H, W) final_T n_contrib M1 M2
-                     const float* __restrict__ cot,        // (H, W, COT_C)
-                     const float* __restrict__ bg,         // (3,)
-                     int width, int height, float znear, float zfar,
-                     float* __restrict__ grad)             // (P, GRAD_F), accumulated
-{
-  __shared__ float s_T[9][BATCH];       // Tu0 Tu1 Tu2 Tv0 Tv1 Tv2 Tw0 Tw1 Tw2
-  __shared__ float s_cx[BATCH], s_cy[BATCH], s_opa[BATCH];
-  __shared__ float s_rgb[3][BATCH], s_nrm[3][BATCH];
-  __shared__ int s_gid[BATCH];
-  __shared__ float s_part[NWARP][BATCH][GRAD_F];
-  __shared__ int s_last;
+tile_walk_kernel(const float4* __restrict__ aux, const int* __restrict__ tile_count,
+                 int width, int height, int gx, int* __restrict__ walk) {
+  __shared__ int s_max;
+  const int tile = blockIdx.x;
+  const int x = (tile % gx) * TILE + threadIdx.x % TILE;
+  const int y = (tile / gx) * TILE + threadIdx.x / TILE;
+  if (threadIdx.x == 0) s_max = 0;
+  __syncthreads();
+  if (x < width && y < height) {
+    const int nc = static_cast<int>(aux[static_cast<size_t>(y) * width + x].y);
+    if (nc > 0) atomicMax(&s_max, nc);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) walk[tile] = min(s_max, tile_count[tile]);
+}
 
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+// 2. One block: the tiles with walk > 0 in the order the walk takes them,
+// longest first by NBUCKET buckets of (walk - 1) * NBUCKET / longest walk
+// (a counting sort; the order within a bucket varies from run to run), the
+// count of them in counters[1] and the next-tile counter zeroed.
+__global__ void __launch_bounds__(ORDER_THREADS)
+tile_order_kernel(int n_tiles, Work w) {
+  __shared__ int s_max, s_bucket[NBUCKET];
+  const int per = (n_tiles + ORDER_THREADS - 1) / ORDER_THREADS;
+  const int t0 = threadIdx.x * per;
+  const int t1 = min(t0 + per, n_tiles);
+  if (threadIdx.x == 0) s_max = 1;
+  if (threadIdx.x < NBUCKET) s_bucket[threadIdx.x] = 0;
+  __syncthreads();
+  int longest = 0;
+  for (int t = t0; t < t1; ++t) longest = max(longest, w.walk[t]);
+  atomicMax(&s_max, longest);
+  __syncthreads();
+  const int max_len = s_max;
+  const auto bucket = [&](int t) {
+    return &s_bucket[static_cast<int>(static_cast<long long>(w.walk[t] - 1) * NBUCKET / max_len)];
+  };
+  for (int t = t0; t < t1; ++t)
+    if (w.walk[t] > 0) atomicAdd(bucket(t), 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {    // bucket starts, longest bucket first
+    int next = 0;
+    for (int b = NBUCKET - 1; b >= 0; --b) {
+      const int n = s_bucket[b];
+      s_bucket[b] = next;
+      next += n;
+    }
+    w.counters[0] = 0;
+    w.counters[1] = next;
+  }
+  __syncthreads();
+  for (int t = t0; t < t1; ++t)
+    if (w.walk[t] > 0) w.order[atomicAdd(bucket(t), 1)] = t;
+}
+
+// One step of the warp fold: each lane holds C values (zero past the end);
+// the lane with bit O set keeps the upper ceil(C/2) of them, its partner the
+// lower, each adding the other's copy.
+template <int C, int O>
+__device__ __forceinline__ void fold_step(float (&a)[GRAD_F], bool up) {
+  constexpr int H = (C + 1) / 2;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = a[i];
+    const float hi = i + H < C ? a[i + H] : 0.f;
+    a[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+  }
+}
+
+// Sums the GRAD_F values over the warp's lanes in 9 + 5 + 3 + 2 + 1 = 20
+// shuffles (instead of GRAD_F x 5): lane warp_fold_slot(lane) ends with the
+// sum of that value; the other 14 lanes end with padding.
+__device__ __forceinline__ float warp_fold(float (&a)[GRAD_F], int lane) {
+  fold_step<18, 16>(a, lane & 16);
+  fold_step<9, 8>(a, lane & 8);
+  fold_step<5, 4>(a, lane & 4);
+  fold_step<3, 2>(a, lane & 2);
+  fold_step<2, 1>(a, lane & 1);
+  return a[0];
+}
+
+// The value warp_fold leaves in `lane`, or -1 for padding.
+__device__ __forceinline__ void fold_slot_step(int lane, int bit, int h, int& slot, int& real) {
+  if (lane & bit) {
+    slot += h;
+    real -= h;
+  } else {
+    real = min(real, h);
+  }
+}
+
+__device__ __forceinline__ int warp_fold_slot(int lane) {
+  int slot = 0, real = GRAD_F;
+  fold_slot_step(lane, 16, 9, slot, real);
+  fold_slot_step(lane, 8, 5, slot, real);
+  fold_slot_step(lane, 4, 3, slot, real);
+  fold_slot_step(lane, 2, 2, slot, real);
+  fold_slot_step(lane, 1, 1, slot, real);
+  return real >= 1 ? slot : -1;
+}
+
+static_assert(GRAD_F == 18, "warp_fold's steps are laid out for 18 values");
+
+// 3. The walk: each block takes the next tile of the order until none is left.
+// Three resident blocks per SM: with distortion ptxas otherwise takes ~114
+// registers (2 blocks), and the cap at 80 ran 11 % faster on the H100;
+// without, a cap at 64 (4 blocks) ran 4 % slower, and a bound of one block
+// per SM let ptxas take 96 registers (2 blocks), 15 % slower.
+template <bool WANT_DIST>
+__global__ void __launch_bounds__(NPIX, 3)
+walk_kernel(const float4* __restrict__ entries, const int* __restrict__ gauss_id,
+            const int* __restrict__ tile_start, const float4* __restrict__ aux,
+            const float* __restrict__ cot, const float* __restrict__ bg,
+            int width, int height, int gx, float znear, float zfar, Work w,
+            float* __restrict__ grad)             // (P, GRAD_F), accumulated
+{
+  __shared__ Stage s;
+  __shared__ float s_part[NWARP][BATCH][GRAD_F];
+  __shared__ int s_tile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int x = blockIdx.x * TILE + threadIdx.x % TILE;
-  const int y = blockIdx.y * TILE + threadIdx.x / TILE;
-  const bool inside = x < width && y < height;
-  const float px = static_cast<float>(x);
-  const float py = static_cast<float>(y);
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int n_items = w.counters[1];
+  const int fold_slot = warp_fold_slot(lane);
   const float m_scale = zfar / (zfar - znear);
 
-  float T_end = 1.f, M1_tot = 0.f, M2_tot = 0.f;
-  int nc = 0;
-  float gC0 = 0.f, gC1 = 0.f, gC2 = 0.f, gN0 = 0.f, gN1 = 0.f, gN2 = 0.f;
-  float gD = 0.f, gA = 0.f, gdist = 0.f, gmed = 0.f;
-  if (inside) {
-    const size_t pix = static_cast<size_t>(y) * width + x;
-    const float4 a = aux[pix];
-    T_end = a.x;
-    nc = static_cast<int>(a.y);
-    M1_tot = a.z;
-    M2_tot = a.w;
-    const float* c = cot + pix * COT_C;
-    gC0 = c[0]; gC1 = c[1]; gC2 = c[2];
-    gN0 = c[3]; gN1 = c[4]; gN2 = c[5];
-    gD = c[6]; gA = c[7]; gdist = c[8]; gmed = c[9];
-  }
-  const float t_end_term = (bg[0] * gC0 + bg[1] * gC1 + bg[2] * gC2 - gA) * T_end;
-
-  if (threadIdx.x == 0) s_last = 0;
-  __syncthreads();
-  if (nc > 0) atomicMax(&s_last, nc);
-  __syncthreads();
-  const int last = min(s_last, count);
-
-  float T = T_end;
-  float S_wu = 0.f, S_w = 0.f, S_mw = 0.f, S_m2w = 0.f, S_wm2T = 0.f;
-  bool med_done = false;
-
-  for (int hi = last; hi > 0; hi -= BATCH) {
-    const int lo = max(hi - BATCH, 0);
-    const int n = hi - lo;
-    if (threadIdx.x < n) {
-      const int e = start + lo + threadIdx.x;
-      const float4* row = entries + static_cast<size_t>(e) * 4;
-      const float4 a = row[0], b = row[1], c = row[2], d = row[3];
-      const float Tu0 = a.x, Tu1 = a.y, Tu2 = a.z;
-      const float Tv0 = a.w, Tv1 = b.x, Tv2 = b.y;
-      const float Tw0 = b.z, Tw1 = b.w, Tw2 = c.x;
-      const int j = threadIdx.x;
-      s_T[0][j] = Tu0; s_T[1][j] = Tu1; s_T[2][j] = Tu2;
-      s_T[3][j] = Tv0; s_T[4][j] = Tv1; s_T[5][j] = Tv2;
-      s_T[6][j] = Tw0; s_T[7][j] = Tw1; s_T[8][j] = Tw2;
-      // Low-pass centre from the dual conic, as in the forward kernel.
-      const float cdist = CUTOFF_SQ * (Tw0 * Tw0 + Tw1 * Tw1) - Tw2 * Tw2;
-      const bool cok = fabsf(cdist) > 1e-12f;
-      const float cinv = 1.0f / (cok ? cdist : 1.0f);
-      s_cx[j] = cok ? (CUTOFF_SQ * (Tu0 * Tw0 + Tu1 * Tw1) - Tu2 * Tw2) * cinv : 0.f;
-      s_cy[j] = cok ? (CUTOFF_SQ * (Tv0 * Tw0 + Tv1 * Tw1) - Tv2 * Tw2) * cinv : 0.f;
-      s_opa[j] = c.y;
-      s_rgb[0][j] = c.z; s_rgb[1][j] = c.w; s_rgb[2][j] = d.x;
-      s_nrm[0][j] = d.y; s_nrm[1][j] = d.z; s_nrm[2][j] = d.w;
-      s_gid[j] = gauss_id[e];
+  for (;;) {
+    __syncthreads();   // every thread has read s_tile and the last batch
+    if (threadIdx.x == 0) {
+      const int it = atomicAdd(&w.counters[0], 1);
+      s_tile = it < n_items ? w.order[it] : -1;
     }
     __syncthreads();
+    const int tile = s_tile;
+    if (tile < 0) break;
 
-    for (int j = n - 1; j >= 0; --j) {
-      float v[GRAD_F];
+    const int x = (tile % gx) * TILE + threadIdx.x % TILE;
+    const int y = (tile / gx) * TILE + threadIdx.x / TILE;
+    const float px = static_cast<float>(x), py = static_cast<float>(y);
+    const float wx = static_cast<float>((tile % gx) * TILE);
+    const float wy = static_cast<float>((tile / gx) * TILE + 2 * warp);
+    float T_end = 1.f, M1_tot = 0.f, M2_tot = 0.f;
+    float gC0 = 0.f, gC1 = 0.f, gC2 = 0.f, gN0 = 0.f, gN1 = 0.f, gN2 = 0.f;
+    float gD = 0.f, gA = 0.f, gdist = 0.f, gmed = 0.f;
+    int nc = 0;
+    if (x < width && y < height) {
+      const size_t pix = static_cast<size_t>(y) * width + x;
+      const float4 a = aux[pix];
+      T_end = a.x;
+      nc = static_cast<int>(a.y);
+      M1_tot = a.z;
+      M2_tot = a.w;
+      const float* c = cot + pix * COT_C;
+      gC0 = c[0]; gC1 = c[1]; gC2 = c[2];
+      gN0 = c[3]; gN1 = c[4]; gN2 = c[5];
+      gD = c[6]; gA = c[7]; gdist = c[8]; gmed = c[9];
+    }
+    const float t_end_term = (bg[0] * gC0 + bg[1] * gC1 + bg[2] * gC2 - gA) * T_end;
+    const int start = tile_start[tile];
+
+    // The state behind the tile's last walked entry.
+    float T = T_end;
+    float S_wu = 0.f, S_w = 0.f, S_mw = 0.f, S_m2w = 0.f, S_wm2T = 0.f;
+    bool med_done = false;
+
+    for (int hi = w.walk[tile]; hi > 0; hi -= BATCH) {
+      const int lo = max(hi - BATCH, 0);
+      const int n = hi - lo;
+      __syncthreads();   // the previous round's atomics have read s.gid and s_part
+      stage_entries(s, entries, gauss_id, start + lo, n);
+      __syncthreads();
+
+      for (int j = n - 1; j >= 0; --j) {
+        float mine = 0.f;
+        // A warp that the entry cannot reach skips it whole (no contributor
+        // is lost: the box bounds every pixel with alpha >= 1/255).
+        if (reaches(s, j, wx, wy)) {
+          float v[GRAD_F];
 #pragma unroll
-      for (int i = 0; i < GRAD_F; ++i) v[i] = 0.f;
-      bool contrib = false;
-      if (lo + j < nc) {
-        // The forward kernel's intersection, written as there.
-        const float Tw0 = s_T[6][j], Tw1 = s_T[7][j], Tw2 = s_T[8][j];
-        const float k0 = __fsub_rn(__fmul_rn(px, Tw0), s_T[0][j]);
-        const float k1 = __fsub_rn(__fmul_rn(px, Tw1), s_T[1][j]);
-        const float k2 = __fsub_rn(__fmul_rn(px, Tw2), s_T[2][j]);
-        const float l0 = __fsub_rn(__fmul_rn(py, Tw0), s_T[3][j]);
-        const float l1 = __fsub_rn(__fmul_rn(py, Tw1), s_T[4][j]);
-        const float l2 = __fsub_rn(__fmul_rn(py, Tw2), s_T[5][j]);
-        const float p0 = k1 * l2 - k2 * l1;
-        const float p1 = k2 * l0 - k0 * l2;
-        const float p2 = k0 * l1 - k1 * l0;
-        if (fabsf(p2) >= 1e-20f) {
-          const float inv = 1.0f / p2;
-          const float su = p0 * inv;
-          const float sv = p1 * inv;
-          const float rho3d = su * su + sv * sv;
-          const float dx = s_cx[j] - px;
-          const float dy = s_cy[j] - py;
-          const float rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy);
-          const bool use3d = rho3d <= rho2d;
-          const float rho = use3d ? rho3d : rho2d;
-          const float z = use3d ? su * Tw0 + sv * Tw1 + Tw2 : Tw2;
-          const float eterm = expf(-0.5f * rho);
-          const float a_raw = s_opa[j] * eterm;
-          const float alpha = fminf(ALPHA_CLAMP, a_raw);
-          if (z >= znear && alpha >= ALPHA_EPS) {
+          for (int i = 0; i < GRAD_F; ++i) v[i] = 0.f;
+          bool contrib = false;
+          Hit h;
+          if (lo + j < nc && intersect(s, j, px, py, znear, h)) {
             contrib = true;
+            const float Tw0 = h.Tw0, Tw1 = h.Tw1;
+            const float alpha = h.alpha, z = h.z;
             const float one_m = 1.0f - alpha;
             const float T_k = T / one_m;
             const float w = alpha * T_k;
-            float u = s_rgb[0][j] * gC0 + s_rgb[1][j] * gC1 + s_rgb[2][j] * gC2
-                    + s_nrm[0][j] * gN0 + s_nrm[1][j] * gN1 + s_nrm[2][j] * gN2 + z * gD;
+            const float4 c0 = s.col[j][0], c1 = s.col[j][1];
+            float u = c0.x * gC0 + c0.y * gC1 + c0.z * gC2
+                    + c0.w * gN0 + c1.x * gN1 + c1.y * gN2 + z * gD;
             float num = -S_wu - t_end_term;
             float dL_dz = w * gD;
             float mw = 0.f, m2w = 0.f, m = 0.f;
@@ -226,92 +434,124 @@ rasterize_bwd_kernel(const float4* __restrict__ entries,   // (E, 16) f32 rows
             // rho = min(rho3d, rho2d), z = use3d ? su Tw0 + sv Tw1 + Tw2 : Tw2.
             // A contributor on the 3D branch has rho3d <= 2 ln(255) and so a
             // small su, sv: no clamp is needed on this path.
-            const float gE = a_raw <= ALPHA_CLAMP ? dL_da : 0.f;
-            const float d_rho = -0.5f * gE * a_raw;
-            if (use3d) {
-              const float d_su = dL_dz * Tw0 + 2.0f * su * d_rho;
-              const float d_sv = dL_dz * Tw1 + 2.0f * sv * d_rho;
-              const float dp0 = d_su * inv;
-              const float dp1 = d_sv * inv;
-              const float dp2 = -inv * (d_su * su + d_sv * sv);
+            const float gE = h.a_raw <= ALPHA_CLAMP ? dL_da : 0.f;
+            const float d_rho = -0.5f * gE * h.a_raw;
+            if (h.use3d) {
+              const float d_su = dL_dz * Tw0 + 2.0f * h.su * d_rho;
+              const float d_sv = dL_dz * Tw1 + 2.0f * h.sv * d_rho;
+              const float dp0 = d_su * h.inv;
+              const float dp1 = d_sv * h.inv;
+              const float dp2 = -h.inv * (d_su * h.su + d_sv * h.sv);
               // dk = l x dp, dl = dp x k.
-              const float dk0 = l1 * dp2 - l2 * dp1;
-              const float dk1 = l2 * dp0 - l0 * dp2;
-              const float dk2 = l0 * dp1 - l1 * dp0;
-              const float dl0 = dp1 * k2 - dp2 * k1;
-              const float dl1 = dp2 * k0 - dp0 * k2;
-              const float dl2 = dp0 * k1 - dp1 * k0;
+              const float dk0 = h.l1 * dp2 - h.l2 * dp1;
+              const float dk1 = h.l2 * dp0 - h.l0 * dp2;
+              const float dk2 = h.l0 * dp1 - h.l1 * dp0;
+              const float dl0 = dp1 * h.k2 - dp2 * h.k1;
+              const float dl1 = dp2 * h.k0 - dp0 * h.k2;
+              const float dl2 = dp0 * h.k1 - dp1 * h.k0;
               v[0] = -dk0; v[1] = -dk1; v[2] = -dk2;
               v[3] = -dl0; v[4] = -dl1; v[5] = -dl2;
-              v[6] = px * dk0 + py * dl0 + dL_dz * su;
-              v[7] = px * dk1 + py * dl1 + dL_dz * sv;
+              v[6] = px * dk0 + py * dl0 + dL_dz * h.su;
+              v[7] = px * dk1 + py * dl1 + dL_dz * h.sv;
               v[8] = px * dk2 + py * dl2 + dL_dz;
             } else {
               const float c2 = 2.0f * FILTER_INV_SQUARE * d_rho;
               v[8] = dL_dz;
-              v[9] = c2 * dx;
-              v[10] = c2 * dy;
+              v[9] = c2 * h.dx;
+              v[10] = c2 * h.dy;
             }
-            v[11] = gE * eterm;
+            v[11] = gE * h.eterm;
             v[12] = w * gC0; v[13] = w * gC1; v[14] = w * gC2;
             v[15] = w * gN0; v[16] = w * gN1; v[17] = w * gN2;
           }
+          if (__any_sync(0xffffffffu, contrib)) mine = warp_fold(v, lane);
         }
+        if (fold_slot >= 0) s_part[warp][j][fold_slot] = mine;
       }
-      float mine = 0.f;
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int i = 0; i < GRAD_F; ++i) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-        }
-#pragma unroll
-        for (int i = 0; i < GRAD_F; ++i)
-          if (lane == i) mine = v[i];
-      }
-      if (lane < GRAD_F) s_part[warp][j][lane] = mine;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    for (int t = threadIdx.x; t < n * GRAD_F; t += NPIX) {
-      const int j = t / GRAD_F, o = t % GRAD_F;
-      float g = 0.f;
+      for (int t = threadIdx.x; t < n * GRAD_F; t += NPIX) {
+        const int j = t / GRAD_F, o = t % GRAD_F;
+        float g = 0.f;
 #pragma unroll
-      for (int w = 0; w < NWARP; ++w) g += s_part[w][j][o];
-      if (g != 0.f)
-        atomicAdd(grad + static_cast<size_t>(s_gid[j]) * GRAD_F + o, g);
+        for (int q = 0; q < NWARP; ++q) g += s_part[q][j][o];
+        if (g != 0.f)
+          atomicAdd(grad + static_cast<size_t>(s.gid[j]) * GRAD_F + o, g);
+      }
     }
-    __syncthreads();   // the next round restages the shared entry terms
   }
 }
 
+// Blocks of the persistent grid: SMs x resident blocks, at most n_tiles.
+template <typename K>
+cudaError_t persistent_blocks(K kernel, int n_tiles, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NPIX, 0);
+  *blocks = std::max(1, std::min(n_tiles, sms * std::max(per_sm, 1)));
+  return e;
+}
+
 template <bool D>
-void launch(const float* entries, const int* gauss_id, const int* tile_start,
-            const int* tile_count, const float* aux, const float* cot, const float* bg,
-            int width, int height, float znear, float zfar, float* grad,
-            cudaStream_t stream) {
-  const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE);
-  rasterize_bwd_kernel<D><<<grid, NPIX, 0, stream>>>(
-      reinterpret_cast<const float4*>(entries), gauss_id, tile_start, tile_count,
-      reinterpret_cast<const float4*>(aux), cot, bg, width, height, znear, zfar, grad);
+cudaError_t launch(const float* entries, const int* gauss_id, const int* tile_start,
+                   const int* tile_count, const float* aux, const float* cot, const float* bg,
+                   int width, int height, float znear, float zfar, int* iscratch, float* grad,
+                   cudaStream_t stream) {
+  const int gx = (width + TILE - 1) / TILE;
+  const int n_tiles = gx * ((height + TILE - 1) / TILE);
+  const Work w = work_layout(iscratch, n_tiles);
+  const float4* a4 = reinterpret_cast<const float4*>(aux);
+  int blocks = 1;
+  cudaError_t e = persistent_blocks(walk_kernel<D>, n_tiles, &blocks);
+  if (e != cudaSuccess) return e;
+  tile_walk_kernel<<<n_tiles, NPIX, 0, stream>>>(a4, tile_count, width, height, gx, w.walk);
+  tile_order_kernel<<<1, ORDER_THREADS, 0, stream>>>(n_tiles, w);
+  walk_kernel<D><<<blocks, NPIX, 0, stream>>>(reinterpret_cast<const float4*>(entries), gauss_id,
+                                              tile_start, a4, cot, bg, width, height, gx, znear,
+                                              zfar, w, grad);
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t kernel_info(K kernel, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, NPIX, 0);
 }
 
 }  // namespace
 
-// Adds into `grad` (the caller zeroes it). Returns cudaGetLastError() after
-// the launch (0 on success).
+// The backward. iscratch holds 2 n_tiles + 2 ints (the work list: tile walks,
+// tile order, counters), which it leaves filled in. Adds into `grad` (the
+// caller zeroes it). Returns the first CUDA error (0 on success).
 extern "C" int g4_rasterize_bwd(const float* entries, const int* gauss_id,
                                 const int* tile_start, const int* tile_count,
                                 const float* aux, const float* cot, const float* bg,
                                 int width, int height, float znear, float zfar,
-                                int want_dist, float* grad, void* stream) {
+                                int want_dist, int* iscratch, float* grad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (width > 0 && height > 0) {
-    if (want_dist)
-      launch<true>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height, znear, zfar, grad, s);
-    else
-      launch<false>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height, znear, zfar, grad, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (width <= 0 || height <= 0) return 0;
+  return static_cast<int>(want_dist
+      ? launch<true>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
+                     znear, zfar, iscratch, grad, s)
+      : launch<false>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
+                      znear, zfar, iscratch, grad, s));
+}
+
+// The walk kernel of the mode: registers, local (spill) bytes, static shared
+// bytes and resident blocks per SM into out[0..3], then the device's SM
+// count into out[4]. Returns a CUDA error (0 on success).
+extern "C" int g4_rasterize_bwd_info(int want_dist, int* out) {
+  cudaError_t e = want_dist ? kernel_info(walk_kernel<true>, out)
+                            : kernel_info(walk_kernel<false>, out);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
 }

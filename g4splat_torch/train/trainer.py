@@ -282,10 +282,16 @@ def adam_step(optimizer: torch.optim.Adam, cfg: TrainConfig):
 
 
 @torch.no_grad()
-def zero_moments_at(optimizer: torch.optim.Adam, changed: torch.Tensor):
-    """Zero Adam moments on changed slots (the reference resets optimizer
-    state for replaced tensors, gaussian_model.py:500-560)."""
-    for state in optimizer.state.values():
+def zero_moments_at(optimizer: torch.optim.Adam, changed: torch.Tensor,
+                    groups: Optional[Tuple[str, ...]] = None):
+    """Zero Adam moments on changed slots, of every param group or of the
+    named `groups` only (the reference resets optimizer state for replaced
+    tensors, gaussian_model.py:500-560, and so for the opacity at its reset,
+    :436-439)."""
+    for group in optimizer.param_groups:
+        if groups is not None and group["name"] not in groups:
+            continue
+        state = optimizer.state.get(group["params"][0], {})
         for key in ("exp_avg", "exp_avg_sq"):
             x = state.get(key)
             if x is not None and x.shape[0] == changed.shape[0]:
@@ -393,6 +399,9 @@ class Trainer:
             if it % cfg.opacity_reset_interval == 0:
                 with torch.no_grad():
                     self._set_scene(self.scene.reset_opacity())
+                    every = torch.ones(self.scene.capacity, dtype=torch.bool,
+                                       device=self.scene.device)
+                    zero_moments_at(self.optimizer, every, groups=("opacity_raw",))
 
         if sync_metrics:
             return {k: float(v) for k, v in metrics.items()}

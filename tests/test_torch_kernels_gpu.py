@@ -118,6 +118,72 @@ def test_backward_kernel_matches_plain(entry_table, want_dist):
         assert float((got[:, sl] - ref[:, sl]).norm()) / norm <= GRAD_TOL, name
 
 
+@pytest.fixture(scope="module")
+def deep_table(cuda):
+    """A deep-overlap scene (tiles of several hundred entries, ragged edge
+    tiles) with B1's saved aux and seeded cotangents: B2's inputs."""
+    rng = np.random.RandomState(3)
+    n = 6000
+    scene = GaussianScene.from_points(
+        rng.uniform(-0.35, 0.35, (n, 3)), rng.rand(n, 3),
+        scales=np.exp(rng.uniform(-3.5, -2.0, n)), quats=rng.randn(n, 4),
+        initial_opacity=0.7, device=cuda)
+    cam = lookat_camera([0, 0, -5.5], [0, 0, 0], [0, -1, 0], fx=220.0, fy=220.0,
+                        width=104, height=88, device=cuda)
+    prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw,
+                      scene.opacity(), scene.features(), 0, config=RenderConfig())
+    b = bin_splats(prep, cam.width, cam.height)
+    entries = rasterize_cuda.pack_entries(prep, b.gauss_id)
+    bg = torch.tensor([0.05, 0.1, 0.15], device=cuda)
+    out = {}
+    for want_dist in (False, True):
+        maps = rasterize_cuda.rasterize_entries(entries, b.tile_start, b.tile_count, bg,
+                                                cam.width, cam.height, want_aux=True,
+                                                want_dist=want_dist)
+        aux = torch.stack([maps["final_T"], maps["n_contrib"].float(), maps["m1_tot"],
+                           maps["m2_tot"]], -1)
+        cot = torch.from_numpy(np.random.RandomState(4).randn(cam.height, cam.width, 12)
+                               .astype(np.float32)).to(cuda)
+        cot[..., 10:] = 0.0
+        out[want_dist] = (entries, b.gauss_id, b.tile_start, b.tile_count, aux, cot, bg,
+                          cam.width, cam.height, int(b.gauss_id.max()) + 1)
+    return out
+
+
+@pytest.mark.parametrize("want_dist", [False, True])
+def test_backward_deep_scene_matches_plain(deep_table, want_dist):
+    """B2 on a deep scene, whose tiles walk several hundred entries in
+    batches of 32 on a persistent grid with more tiles than blocks."""
+    args = deep_table[want_dist]
+    walk = rasterize_cuda_bwd.tile_walks(args[4], args[3], args[7], args[8])
+    assert int(walk.max()) > 256
+    got = rasterize_cuda_bwd.rasterize_backward(*args, want_dist=want_dist)
+    ref = rasterize_cuda_bwd.rasterize_backward_plain(*args, want_dist=want_dist)
+    torch.cuda.synchronize()
+    for name, sl in GROUPS.items():
+        norm = float(ref[:, sl].norm())
+        assert norm > 0, name
+        assert float((got[:, sl] - ref[:, sl]).norm()) / norm <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("want_dist", [False, True])
+def test_backward_worklist_matches_plain(deep_table, want_dist):
+    """B2's work list against its plain version: the tile walks equal, and
+    the tiles taken in the plain order's buckets (the order within a bucket
+    varies with the atomics)."""
+    args = deep_table[want_dist]
+    n_tiles = args[3].numel()
+    grad = torch.zeros((args[9], rasterize_cuda_bwd.GRAD_F), device=args[0].device)
+    work = rasterize_cuda_bwd.worklist(
+        rasterize_cuda_bwd.launch_backward(args[:9], grad, want_dist=want_dist), n_tiles)
+    walk = rasterize_cuda_bwd.tile_walks(args[4], args[3], args[7], args[8])
+    ref = rasterize_cuda_bwd.tile_order_plain(walk)
+    assert torch.equal(work["walk"].long(), walk)
+    assert torch.equal(torch.sort(work["order"])[0], torch.sort(ref)[0])
+    bucket = rasterize_cuda_bwd.walk_buckets(walk)
+    assert torch.equal(bucket[work["order"].long()], bucket[ref.long()])
+
+
 @pytest.mark.parametrize("dist", [False, True])
 def test_cuda_backend_gradients_match_tiled(cuda, dist):
     rng = np.random.RandomState(4)

@@ -43,9 +43,9 @@ def rel(a, b):
 
 
 class Case:
-    def __init__(self, n, seed, **scene_kw):
+    def __init__(self, n, seed, cam=(), **scene_kw):
         self.ts, self.js = make_scenes(n, seed, **scene_kw)
-        self.tc, self.jc = make_cams()
+        self.tc, self.jc = make_cams(*cam)
         self.n = self.js.capacity
 
 
@@ -170,6 +170,235 @@ def test_plain_backward_independent_of_chunking(deep):
     assert 0 < stats["contributors"] <= stats["pairs"]
     assert 0 < stats["splats"] <= prep.T.shape[0]
     assert stats["rows"] <= entries.shape[0]
+
+
+def backward_args(case, want_dist, seed=6):
+    prep, b, entries = entry_problem(case)
+    W, H = case.tc.width, case.tc.height
+    bg = torch.tensor(BG)
+    with torch.no_grad():
+        maps = tcuda.rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg, W, H,
+                                             want_dist=want_dist)
+    return (entries, b.gauss_id, b.tile_start, b.tile_count, aux_image(maps),
+            cot_image(cotangents(maps, seed)), bg, W, H, prep.T.shape[0])
+
+
+@pytest.fixture(scope="module")
+def closeup():
+    # Surfels 0.25-1.0 from the camera, many seen at a slant: tens of pixels
+    # across, the reach boxes' widest and most tilted case.
+    return Case(300, 5, spread=0.5, depth=(0.25, 1.0), opacity=0.9)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    # A 512×384 frame (the training shape): pixel coordinates in the
+    # hundreds, where the intersection's cross product cancels most.
+    return Case(400, 11, cam=(512, 384, 480.0), spread=1.5, depth=(2.0, 6.0))
+
+
+def reach_box_pairs(args, margin):
+    """Walked (entry, pixel) pairs against the entries' reach boxes, over the
+    plain version's own intersections: contributing pairs outside their
+    box, contributing pairs, and pairs the boxes leave out."""
+    entries, gid, tile_start, tile_count, aux, cot, bg, W, H, _ = args
+    box = tbwd.reach_boxes(entries, margin=margin)
+    gx, aux_t, cot_t, walk, ent, order, bg = tbwd._plain_setup(
+        entries, gid, tile_start, tile_count, aux, cot, bg, W, H, tcommon.NEAR_N,
+        tcommon.FAR_N)
+    n = dict(outside=0, contributing=0, left_out=0)
+    for b0 in range(0, order.numel(), 32):
+        t = order[b0:b0 + 32]
+        b = tbwd._Batch(t, gx, tile_start, walk[t], aux_t, cot_t, bg)
+        last = int(b.last.max())
+        for lo in range(0, last, 64):
+            pos, idx, _, _, _, _, contrib, _, _, _ = ent.chunk(b, lo, min(lo + 64, last))
+            bx = box[idx]
+            px, py = b.px[:, None, :].double(), b.py[:, None, :].double()
+            inside = ((px >= bx[..., 0:1]) & (px <= bx[..., 1:2]) & (py >= bx[..., 2:3])
+                      & (py <= bx[..., 3:4]))
+            walked = (pos[None, :] < b.last[:, None])[..., None]
+            n["outside"] += int((contrib & walked & ~inside).sum())
+            n["contributing"] += int((contrib & walked).sum())
+            n["left_out"] += int((walked & ~inside).sum())
+    return n
+
+
+@pytest.mark.parametrize("scene", ["deep", "spread", "closeup", "wide"])
+def test_reach_boxes_hold_every_contributor(request, scene):
+    """The reach box that lets B2's warps skip an entry bounds every pixel
+    the entry contributes to, even with no margin (the kernel adds one
+    pixel), and still leaves out part of the walked pairs: close by, at a
+    slant and at the large pixel coordinates of a 512×384 frame."""
+    args = backward_args(request.getfixturevalue(scene), False)
+    n = reach_box_pairs(args, margin=0.0)
+    assert n["contributing"] > 0
+    assert n["outside"] == 0, n
+    assert n["left_out"] > 0
+
+
+def slanted_surfel(theta, center=(450.0, 330.0), depth=3.0, f=480.0, s=0.05,
+                   opacity=0.9):
+    """One entry row: a surfel of radius scale s at `depth` whose centre
+    projects to pixel `center` of a pinhole of focal length f centred at
+    (0, 0), its u axis turned by `theta` from square to the viewing ray
+    toward the ray itself (90° is edge-on to the camera); T's rows are
+    M = K [t_u, t_v, p0]."""
+    cx, cy = center
+    p0 = np.array([cx * depth / f, cy * depth / f, depth])
+    ray = p0 / np.linalg.norm(p0)
+    t_v = np.cross(ray, [1.0, 0.0, 0.0])
+    t_v /= np.linalg.norm(t_v)
+    t_u = np.cos(theta) * np.cross(t_v, ray) + np.sin(theta) * ray
+    M = np.diag([f, f, 1.0]) @ np.stack([s * t_u, s * t_v, p0], 1)
+    row = np.zeros(tcommon.ENTRY_F)
+    row[:9] = M.reshape(-1)
+    row[9] = opacity
+    return torch.tensor(row[None], dtype=torch.float32)
+
+
+def grid_contributors(entries, W=512, H=384):
+    """(E, H·W) whether each entry contributes at each pixel of a W×H grid,
+    by the forward plain version's arithmetic, and the pixel coordinates."""
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    E = entries.shape[0]
+    T = entries[:, :9].reshape(E, 3, 3)
+    center, _, ok = tcommon.conic_center(T)
+    center = torch.where(ok[:, None], center, 0.0)
+    alpha, _ = tcommon.alpha_depth(T, center, entries[:, 9], torch.ones(E, dtype=torch.bool),
+                                   px, py)
+    return alpha > 0, px.double(), py.double()
+
+
+@pytest.mark.parametrize("theta_deg,center", [
+    (0.0, (450.0, 330.0)), (60.0, (450.0, 330.0)), (85.0, (450.0, 330.0)),
+    (89.0, (450.0, 330.0)), (89.9, (450.0, 330.0)),
+    (89.9, (0.0, 200.0)),          # edge-on to a vertical sliver: the low-pass disk sets x
+])
+def test_reach_box_holds_slanted_surfels(theta_deg, center):
+    """A surfel of a 512×384 frame, from square to the viewing ray to
+    almost edge-on: every pixel it contributes to lies inside its box with
+    no margin, and while the disk's image is wide the box is tight (within
+    2 pixels of the contributors) along its v axis (near y)."""
+    e = slanted_surfel(np.deg2rad(theta_deg), center=center)
+    hit, px, py = grid_contributors(e)
+    box = tbwd.reach_boxes(e, margin=0.0)[0]
+    assert int(hit.sum()) > 0
+    x, y = px[hit[0]], py[hit[0]]
+    assert float(x.min()) >= box[0] and float(x.max()) <= box[1]
+    assert float(y.min()) >= box[2] and float(y.max()) <= box[3]
+    if theta_deg <= 60.0:
+        assert float(box[3] - y.max()) <= 2.0 and float(y.min() - box[2]) <= 2.0
+
+
+def test_reach_box_face_on_matches_its_formula():
+    """A surfel parallel to the image plane, its centre at pixel (200, 100):
+    the box is the centre ± max(sqrt(R)·f·s / depth,
+    sqrt(R / 2)) with R = 2 ln(opacity · 255) widened by 0.1 % + 1e-3, plus
+    the margin."""
+    f, s, depth, opa = 480.0, 0.05, 3.0, 0.9
+    row = np.zeros(tcommon.ENTRY_F, dtype=np.float32)
+    row[:9] = [f * s, 0.0, 200.0 * depth, 0.0, f * s, 100.0 * depth, 0.0, 0.0, depth]
+    row[9] = opa
+    e = torch.from_numpy(row[None])
+    R = (2.0 * np.log(np.float32(opa) / tcommon.ALPHA_EPS)) * 1.001 + 1e-3
+    r = max(np.sqrt(R) * f * s / depth, np.sqrt(R / tcommon.FILTER_INV_SQUARE))
+    want = np.array([200.0 - r, 200.0 + r, 100.0 - r, 100.0 + r]) + np.array([-1, 1, -1, 1])
+    np.testing.assert_allclose(np_(tbwd.reach_boxes(e, margin=1.0)[0]), want, rtol=1e-5)
+
+
+def test_reach_box_empty_and_unbounded():
+    """An entry below the alpha threshold reaches no pixel (an empty box);
+    a disk that crosses the camera plane gets an unbounded one."""
+    faint = slanted_surfel(0.3, opacity=0.5 / 255.0)
+    box = tbwd.reach_boxes(faint)[0]
+    assert box[0] > box[1] and box[2] > box[3]
+    assert not bool(grid_contributors(faint)[0].any())
+    crossing = slanted_surfel(np.deg2rad(89.0), depth=0.02, s=0.5)
+    box = tbwd.reach_boxes(crossing)[0]
+    assert torch.isinf(box).all() and box[0] < 0 < box[1]
+
+
+@pytest.mark.parametrize("walks", [
+    [0, 5, 0, 0, 3, 0],                      # empty tiles, short tiles
+    [0, 9, 1, 1000, 0, 1],                   # one tile far longer than the rest
+    [3, 7, 2, 8, 1, 4],                      # every tile short
+    [16, 17, 15, 32, 33, 0],
+    [0, 0, 0, 0],                            # nothing to walk
+    [7, 7, 7, 7],                            # one bucket
+    list(range(1, 65)),                      # two walks per bucket
+    [1],
+])
+def test_tile_order_plain(walks):
+    """The kernel's tile order on hand-made walks: every tile that walks an
+    entry once, bucket by bucket longest first, so no tile starts behind one
+    that walks more than a bucket's width (longest / NBUCKET) less."""
+    walk = torch.tensor(walks, dtype=torch.int32)
+    order = tbwd.tile_order_plain(walk)
+    longest = max(max(walks), 1)
+    want = sorted((t for t, w in enumerate(walks) if w > 0),
+                  key=lambda t: (-((walks[t] - 1) * tbwd.NBUCKET // longest), t))
+    assert order.dtype == torch.int32 and order.tolist() == want
+    got = [walks[t] for t in want]
+    for i, w in enumerate(got):
+        assert all(w >= v - longest / tbwd.NBUCKET for v in got[i:])
+    np.testing.assert_array_equal(np_(tbwd.walk_buckets(walk)),
+                                  [((w - 1) * tbwd.NBUCKET // longest) if w else -1
+                                   for w in walks])
+
+
+@pytest.mark.parametrize("seed,nc_scale", [(0, 0.0), (1, 0.5), (2, 3.0), (3, 1.0)])
+def test_tile_walks(seed, nc_scale):
+    """Entries each tile walks, min(deepest n_contrib of its pixels, count),
+    on a 40×24 frame whose edge tiles are ragged (pixels past the frame
+    count for nothing)."""
+    rng = np.random.RandomState(seed)
+    W, H = 40, 24
+    counts = rng.randint(0, 50, size=6)
+    nc = np.floor(rng.rand(H, W) * nc_scale * 50)
+    aux = torch.zeros(H, W, 4)
+    aux[..., 1] = torch.from_numpy(nc.astype(np.float32))
+    walk = tbwd.tile_walks(aux, torch.tensor(counts, dtype=torch.int32), W, H)
+    want = [min(int(nc[ty * 16:(ty + 1) * 16, tx * 16:(tx + 1) * 16].max()), int(counts[t]))
+            for t, (ty, tx) in enumerate((ty, tx) for ty in range(2) for tx in range(3))]
+    np.testing.assert_array_equal(np_(walk), want)
+
+
+@pytest.mark.parametrize("want_dist", [False, True])
+def test_backward_runs_plain_version_on_cpu(deep, want_dist):
+    """On CPU tensors the wrapper is the plain version, and counts no launch."""
+    args = backward_args(deep, want_dist)
+    before = tbwd.RASTERIZE_BWD.launches
+    got = tbwd.rasterize_backward(*args, want_dist=want_dist)
+    assert tbwd.RASTERIZE_BWD.launches == before
+    ref = tbwd.rasterize_backward_plain(*args, want_dist=want_dist)
+    assert torch.equal(got, ref)
+
+
+def test_kernel_binding_matches_source(monkeypatch):
+    """Every function csrc/rasterize_bwd.cu exports gets ctypes argtypes of
+    its C signature (pointer → c_void_p, int → c_int, float → c_float) and
+    an int restype, so no pointer is cut to 32 bits."""
+    import ctypes
+    import re
+    import types
+
+    from g4splat_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "rasterize_bwd.cu").read_text()
+    sigs = dict(re.findall(r'extern "C" int (g4_\w+)\(([^)]*)\)', src))
+    assert len(sigs) == 2
+    fake = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in sigs})
+    monkeypatch.setattr(cuda_build, "load", lambda name: fake)
+    tbwd._lib()
+    kinds = {"*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    for name, params in sigs.items():
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[-2]]
+                for p in params.split(",")]
+        fn = getattr(fake, name)
+        assert fn.argtypes == want and fn.restype is ctypes.c_int, name
 
 
 def test_backward_wrapper_checks_inputs(deep):

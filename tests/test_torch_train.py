@@ -500,6 +500,34 @@ def test_trainer_densify_and_grow_capacity():
     assert not np.allclose(alive, 0) and set(moments) == set(ttr.PARAM_FIELDS)
 
 
+def test_opacity_reset_zeroes_opacity_moments():
+    """At an opacity reset the opacity group's Adam moments are zeroed on
+    every slot, as the reference's reset_opacity does through
+    replace_tensor_to_optimizer; the other groups keep theirs."""
+    scene, cams, views = port_problem(n_views=2, res=24, n_gauss=30, capacity=34)
+    cfg = ttr.TrainConfig(densify_from_iter=0, densify_until_iter=100,
+                          densification_interval=1000, opacity_reset_interval=3,
+                          use_depth_order=False, sh_increase_interval=10_000)
+    trainer = ttr.Trainer(scene, cams, views, cfg)
+
+    def moments():
+        return {g["name"]: [trainer.optimizer.state[g["params"][0]][k].clone()
+                            for k in ("exp_avg", "exp_avg_sq")]
+                for g in trainer.optimizer.param_groups}
+
+    for _ in range(2):
+        trainer.step()
+    before = moments()
+    assert all(bool(m.abs().sum() > 0) for m in before["opacity_raw"])
+    trainer.step()                           # iteration 3: the reset
+    after = moments()
+    assert all(not m.any() for m in after["opacity_raw"])
+    for name, ms in after.items():
+        if name != "opacity_raw":
+            assert all(bool(m.abs().sum() > 0) for m in ms), name
+    assert float(trainer.scene.opacity()[trainer.scene.alive].max()) <= 0.011
+
+
 def test_train_step_runs_without_tf32(monkeypatch):
     """train_step's losses (the SSIM convolutions) run with TF32 off whatever
     the caller set, and the caller's flags come back after the step."""
