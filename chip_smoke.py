@@ -18,18 +18,23 @@ Phases (any failure exits non-zero and prints no result line):
      version in both modes (B1's saved aux, seeded random cotangents), on
      the 8k-splat "spread" and "deep-overlap" scenes at 256x192
      (fx = fy = 220), and on the spread scene seen from close by, where the
-     distortion map is large; on each, no contributing pair outside its
-     entry's reach box, and (deep-overlap too) B2's work list vs its plain
-     version; B2's time;
+     distortion map is large; on each, B1 reading rows through gauss_id
+     bitwise equal to B1 on the gathered rows, no pair with alpha >= 1/255
+     that B1 walks and no contributing pair of B2 outside its entry's reach
+     box, and (deep-overlap too) B2's work list vs its plain version; B2's
+     time;
   4. the render main path: a 200k-splat scene at SH degree 3, written to PLY
      and read back, rendered by render(backend="cuda") from 8 orbit cameras
      at 768x576 with need_aux=False and again with compute_distortion=False;
-     B1's launch count must rise by exactly 16;
+     B1's launch count must rise by exactly 16; on each orbit frame B1 vs
+     its plain version in all three modes and B1's reach boxes;
   5. one frame of a 2.4M-splat scene at 512x384: B1 in all three modes and
-     B2 in both, against their plain versions; no contributing pair outside
-     its reach box in either mode; B2's time;
-  6. render timings: B1, the whole render() and its stages, the plain
-     version, B1's bound, peak memory;
+     B2 in both, against their plain versions; the gauss_id bitwise check;
+     no pair outside its reach box (B1, and B2 in either mode); B2's time;
+  6. render timings: B1, the whole render() and its stages (preprocess,
+     binning, the splat table, B1, post), the plain version, B1's bound (on
+     the pairs its reach boxes leave, beside the bound on every pair
+     walked), its per-tile reads, reach-box skip share, registers and waves;
   7. whole-chain gradients: render(backend="cuda") (B1 + B2 in one autograd
      Function) against render(backend="tiled") (PyTorch autograd) on a small
      scene, every scene parameter and the screen-space offset; B1 and B2 rise
@@ -39,11 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
      TrainConfig's production defaults; 30 Trainer.step() calls with a
      densify window (densify at 10, 20, 30), then 5 with lambda_dist > 0;
      finite losses, loss down and PSNR up over the view cycle, and exactly
-     one B1 and one B2 launch per step; no contributing pair outside its
-     reach box on the trained scene;
+     one B1 and one B2 launch per step; no pair outside its reach box (B1
+     and B2) on the trained scene;
   9. training timings: the median step and its split (forward render,
      losses, backward, Adam, densify); at the training shape (the first
-     step's scene): B2's per-tile walk lengths, its walk kernel's registers
+     step's scene): B1's per-tile reads, reach-box skip share, registers,
+     waves and bound; B2's per-tile walk lengths, its walk kernel's registers
      and resident blocks, the (warp, entry) steps its reach boxes skip (none
      holding a contributor), its work list and its gradients vs their plain
      versions, and its time (whole call) beside its bound and the plain
@@ -214,22 +220,23 @@ def build_scene(n, seed, spread=3.0, wall=True, opacity=0.8, log_scale=(-4.5, -3
 
 
 def kernel_inputs(cam, scene):
+    """The kernels' inputs for one frame: the binning and the splat table."""
     from g4splat_torch.ops.rasterize_common import RenderConfig, preprocess
-    from g4splat_torch.ops.rasterize_cuda import pack_entries
+    from g4splat_torch.ops.rasterize_cuda import splat_table
     from g4splat_torch.ops.rasterize_tiled import bin_splats
 
     prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw, scene.opacity(),
                       scene.features(), scene.active_sh_degree, config=RenderConfig())
     b = bin_splats(prep, cam.width, cam.height)
-    return b, pack_entries(prep, b.gauss_id)
+    return b, splat_table(prep)
 
 
-def compare_maps(tag, got, ref):
-    """Grade the kernel's maps against the plain version's. Prints, per map,
-    the largest |d| over all pixels and over the agreeing ones, the plain
-    map's largest value, the share of pixels that disagree, and the share a
-    map of zeros would get wrong (what the check can see). Returns the
-    latter per map."""
+def compare_maps(tag, got, ref, quiet=False):
+    """Grade the kernel's maps against the plain version's. Prints (unless
+    quiet), per map, the largest |d| over all pixels and over the agreeing
+    ones, the plain map's largest value, the share of pixels that disagree,
+    and the share a map of zeros would get wrong (what the check can see).
+    Returns the latter per map."""
     global max_abs_err
     import torch
 
@@ -253,58 +260,193 @@ def compare_maps(tag, got, ref):
     nc = float((got["n_contrib"] != ref["n_contrib"]).to(torch.float32).mean())
     check(worst < FLIP_FRAC and nc < FLIP_FRAC,
           f"{tag}: worst map disagrees at {worst:.1e} of pixels, n_contrib at {nc:.1e}")
-    print("\n".join(lines))
+    if not quiet:
+        print("\n".join(lines))
     return seen
 
 
-def kernel_vs_plain(tag, b, entries, w, h, modes=MODES):
+def kernel_vs_plain(tag, b, table, w, h, modes=MODES, quiet=False):
     """Run kernel and plain version on the same card tensors in each mode.
-    Returns the kernel's work on these inputs, (pairs walked, entries its
-    tiles must read), and the last mode's compare_maps result."""
+    Returns the last mode's compare_maps result and the last plain maps."""
     import torch
 
     from g4splat_torch.ops.rasterize_cuda import rasterize_entries, rasterize_entries_plain
 
     bg = torch.tensor([0.05, 0.1, 0.15], device=DEVICE)
-    work = seen = None
+    seen = ref = None
     for mode in modes:
         aux, dist = MODES[mode]
-        got = rasterize_entries(entries, b.tile_start, b.tile_count, bg, w, h,
+        got = rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count, bg, w, h,
                                 want_aux=aux, want_dist=dist)
-        ref = rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg, w, h,
+        ref = rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count, bg, w, h,
                                       want_aux=aux, want_dist=dist)
         torch.cuda.synchronize()
-        seen = compare_maps(f"{tag} [{mode}]", got, ref)
-        work = (int(ref["n_walked"].sum()), tile_reads(ref["n_walked"], w, h))
-    return work, seen
+        seen = compare_maps(f"{tag} [{mode}]", got, ref, quiet)
+    return seen, ref
 
 
-def tile_reads(n_walked, w, h):
-    """Entries the kernel's tiles must read: per tile, the most that any of
-    its pixels walks (the rest of its range lies behind saturated pixels)."""
-    from g4splat_torch.ops.rasterize_common import TILE
+def gathered_bitwise(tag, b, table, w, h, modes=MODES):
+    """B1 reading rows through gauss_id against B1 on the rows gathered
+    beforehand (table[gauss_id] with identity ids): every map bit-identical
+    in each mode, since the data and the arithmetic are the same."""
+    import torch
 
-    gx, gy = -(-w // TILE), -(-h // TILE)
-    pad = n_walked.new_zeros((gy * TILE, gx * TILE))
-    pad[:h, :w] = n_walked
-    return int(pad.reshape(gy, TILE, gx, TILE).amax(dim=(1, 3)).sum())
+    from g4splat_torch.ops.rasterize_cuda import rasterize_entries
+
+    bg = torch.tensor([0.05, 0.1, 0.15], device=DEVICE)
+    rows = table[b.gauss_id.long()].contiguous()
+    ids = torch.arange(rows.shape[0], dtype=torch.int32, device=DEVICE)
+    for mode in modes:
+        aux, dist = MODES[mode]
+        got = rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count, bg, w, h,
+                                want_aux=aux, want_dist=dist)
+        ref = rasterize_entries(rows, ids, b.tile_start, b.tile_count, bg, w, h,
+                                want_aux=aux, want_dist=dist)
+        same = all(torch.equal(got[k], ref[k]) for k in got)
+        check(same, f"{tag} [{mode}]: B1 through gauss_id is bitwise equal to B1 on the "
+              f"gathered rows ({rows.shape[0]} entries)")
+
+
+def histogram(x):
+    """{"max", "mean", "p50", "p90", "p99", "over_2x_mean", "tiles"} of a
+    per-tile count."""
+    import torch
+
+    x = x.to(torch.float64)
+    q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                       device=x.device))
+    mean = float(x.mean())
+    return {"max": float(x.max()), "mean": mean, "p50": float(q[0]), "p90": float(q[1]),
+            "p99": float(q[2]), "over_2x_mean": int((x > 2 * mean).sum()), "tiles": x.numel()}
+
+
+def format_histogram(hist):
+    return ", ".join(f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in hist.items()) + f"; max/mean {hist['max'] / hist['mean']:.2f}"
+
+
+def box_scan(table, gauss_id, tile_start, tile_count, limit, n_contrib, w, h):
+    """A kernel's walk over these inputs, from the plain intersections: pixel
+    p walks its tile's entries below limit[p] (B1: n_walked, up to where it
+    stops; B2: n_contrib), and its contributors (alpha >= 1/255) lie below
+    n_contrib[p]. Over the (warp, entry) steps of each tile's walk, up to its
+    deepest pixel's limit, it counts: walked (8 warps per entry), live (a
+    lane below its limit), contributing (a contributing lane) and skipped
+    (live, but the entry's reach box, rasterize_cuda_bwd.reach_boxes, misses
+    the warp's 16x2 pixels). Over the (pixel, entry) pairs below the limit:
+    pairs, needed (those of the steps the boxes leave) and outside (alpha >=
+    1/255 outside the entry's box: a warp that skipped it would change T for
+    everything behind it). Returns the counts and each tile's walk length."""
+    import torch
+
+    from g4splat_torch.ops.rasterize_common import TILE, alpha_depth, conic_center
+    from g4splat_torch.ops.rasterize_cuda_bwd import reach_boxes
+    from g4splat_torch.ops.rasterize_tiled import disassemble_tiles
+
+    gx = -(-w // TILE)
+    lim_t = disassemble_tiles(limit, w, h).long()                    # (n_tiles, 256)
+    nc_t = disassemble_tiles(n_contrib, w, h).long()
+    lens = torch.minimum(lim_t.amax(1), tile_count.long())
+    box = reach_boxes(table)
+    T_all = table[:, :9].reshape(-1, 3, 3)
+    center, _, ok = conic_center(T_all)
+    center = torch.where(ok[:, None], center, 0.0)
+    gid = gauss_id.long()
+    lin = torch.arange(256, device=table.device)
+    n = dict(walked=0, live=0, contributing=0, skipped=0, pairs=0, needed=0, outside=0)
+    live_tiles = torch.nonzero(lens > 0).flatten()
+    K = 64
+    for b0 in range(0, live_tiles.numel(), 64):
+        t = live_tiles[b0:b0 + 64]
+        nb = t.numel()
+        px = ((t % gx) * TILE)[:, None] + (lin % TILE)                # (nb, 256)
+        py = ((t // gx) * TILE)[:, None] + (lin // TILE)
+        for lo in range(0, int(lens[t].max()), K):
+            pos = torch.arange(lo, lo + K, device=table.device)
+            inside = pos[None, :] < lens[t][:, None]                   # (nb, K)
+            rows = gid[torch.clamp(tile_start[t].long()[:, None] + pos, max=gid.numel() - 1)]
+            alpha, _ = alpha_depth(T_all[rows], center[rows], table[rows, 9], inside,
+                                   px.float(), py.float())             # (nb, K, 256)
+            walking = (pos[None, :, None] < lim_t[t][:, None, :]) & inside[..., None]
+            contrib = (alpha > 0) & (pos[None, :, None] < nc_t[t][:, None, :])
+            bx = box[rows]
+            pxd, pyd = px[:, None, :].double(), py[:, None, :].double()
+            in_box = ((pxd >= bx[..., 0:1]) & (pxd <= bx[..., 1:2])
+                      & (pyd >= bx[..., 2:3]) & (pyd <= bx[..., 3:4]))
+            wx = px.view(nb, 8, 32)[..., 0][:, None].double()
+            wy = py.view(nb, 8, 32)[..., 0][:, None].double()
+            reach = ((bx[..., 0:1] <= wx + 15) & (bx[..., 1:2] >= wx)
+                     & (bx[..., 2:3] <= wy + 1) & (bx[..., 3:4] >= wy))  # (nb, K, 8)
+            lanes = walking.view(nb, K, 8, 32)
+            live = lanes.any(-1)
+            n["walked"] += int(inside.sum()) * 8
+            n["live"] += int(live.sum())
+            n["contributing"] += int(contrib.view(nb, K, 8, 32).any(-1).sum())
+            n["skipped"] += int((live & ~reach).sum())
+            n["pairs"] += int(walking.sum())
+            n["needed"] += int((lanes & reach[..., None]).sum())
+            n["outside"] += int(((alpha > 0) & walking & ~in_box).sum())
+    return n, lens
+
+
+def fwd_activity(tag, b, table, maps, w, h):
+    """B1's walk on these inputs (box_scan), from its plain version's maps (a
+    run with want_aux=True: n_walked and n_contrib). Checks that no pair a
+    pixel walks with alpha >= 1/255 (a contributor, or the entry that stops
+    the pixel) lies outside its entry's box. Returns the counts, with the
+    entries the tiles read ("reads"), and the per-tile read histogram."""
+    n, reads = box_scan(table, b.gauss_id, b.tile_start, b.tile_count, maps["n_walked"],
+                        maps["n_contrib"], w, h)
+    n["reads"] = int(reads.sum())
+    check(n["outside"] == 0, f"{tag}: every walked pair with alpha >= 1/255 lies inside its "
+          f"entry's reach box ({n['outside']} outside)")
+    print(f"  {tag}: B1 (warp, entry) steps walked {n['walked']}, with a lane still walking "
+          f"{n['live']} ({100 * n['live'] / max(n['walked'], 1):.1f} %), with a contributing "
+          f"lane {n['contributing']} ({100 * n['contributing'] / max(n['walked'], 1):.1f} %), "
+          f"still walking but outside the entry's reach box {n['skipped']} "
+          f"({100 * n['skipped'] / max(n['live'], 1):.1f} % of those still walking); "
+          f"(pixel, entry) pairs walked {n['pairs']}, of them in steps the boxes leave "
+          f"{n['needed']}")
+    return n, histogram(reads)
+
+
+def plain_walk(b, table, w, h):
+    """B1's plain version in mode want_aux=True, no distortion: the maps
+    fwd_activity reads (n_walked, n_contrib)."""
+    import torch
+
+    from g4splat_torch.ops.rasterize_cuda import rasterize_entries_plain
+
+    return rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                   torch.zeros(3, device=DEVICE), w, h, want_dist=False)
+
+
+def print_b1_walk(tag, act, b, modes=MODES):
+    """B1's per-tile reads and reach-box skip share (from fwd_activity), and
+    each mode's kernel: registers, spills, resident blocks per SM and the
+    waves its grid of one block per tile takes."""
+    from g4splat_torch.ops import rasterize_cuda
+
+    n, hist = act
+    print(f"  {tag}: B1 reads per tile {format_histogram(hist)}; reach boxes skip "
+          f"{100 * n['skipped'] / max(n['live'], 1):.1f} % of the (warp, entry) steps with a "
+          f"lane still walking")
+    for mode in modes:
+        info = rasterize_cuda.kernel_info(*MODES[mode])
+        slots = info["blocks_per_sm"] * info["sms"]
+        print(f"  {tag}: B1 [{mode}] {info['registers']} registers, {info['spill_bytes']} B "
+              f"spilled, {info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks per SM "
+              f"on {info['sms']} SMs: {b.tile_count.numel()} tiles take "
+              f"{b.tile_count.numel() / max(slots, 1):.2f} waves")
 
 
 def walk_histogram(args):
     """B2's per-tile walk lengths on its inputs `args`, min(deepest n_contrib
     in the tile, tile count), as {"max", "mean", "p50", "p90", "p99",
     "over_2x_mean", "tiles"}."""
-    import torch
-
     from g4splat_torch.ops.rasterize_cuda_bwd import tile_walks
 
-    walk = tile_walks(args[4], args[3], args[7], args[8]).to(torch.float64)
-    q = torch.quantile(walk, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
-                                          device=walk.device))
-    mean = float(walk.mean())
-    return {"max": float(walk.max()), "mean": mean, "p50": float(q[0]), "p90": float(q[1]),
-            "p99": float(q[2]), "over_2x_mean": int((walk > 2 * mean).sum()),
-            "tiles": walk.numel()}
+    return histogram(tile_walks(args[4], args[3], args[7], args[8]))
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -325,8 +467,8 @@ def cuda_ms(fn, reps=10, warmup=2):
 def kernel_bound(n_read, n_tiles, w, h, pairs):
     """Least time for the kernel's work on this run's data: the entry rows
     its tiles must read, the tile ranges and bg read once and the maps
-    written once, against the fp32 operations on the pairs walked. Returns
-    (ms, 'bytes' | 'operations')."""
+    written once, against the fp32 operations on `pairs` (pixel, entry)
+    pairs. Returns (ms, 'bytes' | 'operations')."""
     from g4splat_torch.ops.rasterize_cuda import ENTRY_F, OPS_PER_PAIR, OUT_BYTES_PER_PIXEL
 
     nbytes = n_read * ENTRY_F * 4 + n_tiles * 8 + 12 + w * h * OUT_BYTES_PER_PIXEL
@@ -335,26 +477,37 @@ def kernel_bound(n_read, n_tiles, w, h, pairs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(tag, b, entries, w, h, work, modes):
-    """Kernel and plain-version ms per mode at this shape, beside the bound."""
+def b1_bound(tag, n, n_tiles, w, h):
+    """B1's bound on the work these inputs need (fwd_activity's counts `n`):
+    the pairs the reach boxes leave, since every skipped one has alpha below
+    1/255. Prints it beside the bound over every pair walked. Returns (ms,
+    'bytes' | 'operations')."""
+    bound, by = kernel_bound(n["reads"], n_tiles, w, h, n["needed"])
+    walked, _ = kernel_bound(n["reads"], n_tiles, w, h, n["pairs"])
+    print(f"  {tag}: B1 bound {bound:.4f} ms ({by}) over the {n['needed']} pairs the reach "
+          f"boxes leave; {walked:.4f} ms over every pair walked ({n['pairs']})")
+    return bound, by
+
+
+def time_kernel(tag, b, table, w, h, act, modes):
+    """Kernel and plain-version ms per mode at this shape, beside the bound
+    (b1_bound of fwd_activity's counts `act`)."""
     import torch
 
     from g4splat_torch.ops.rasterize_cuda import rasterize_entries, rasterize_entries_plain
 
     bg = torch.zeros(3, device=DEVICE)
     rows = {}
-    pairs, n_read = work
-    bound, bound_by = kernel_bound(n_read, b.tile_count.numel(), w, h, pairs)
+    bound, bound_by = b1_bound(tag, act, b.tile_count.numel(), w, h)
     for mode in modes:
         aux, dist = MODES[mode]
-        args = (entries, b.tile_start, b.tile_count, bg, w, h)
+        args = (table, b.gauss_id, b.tile_start, b.tile_count, bg, w, h)
         k_ms = cuda_ms(lambda: rasterize_entries(*args, want_aux=aux, want_dist=dist))
         p_ms = cuda_ms(lambda: rasterize_entries_plain(*args, want_aux=aux, want_dist=dist),
                        reps=1, warmup=0)   # warm: it just ran in phase 3-5
         rows[mode] = (k_ms, p_ms)
         print(f"  {tag} [{mode}] kernel {k_ms:.4f} ms  plain {p_ms:.2f} ms  bound "
-              f"{bound:.4f} ms ({bound_by})  entries {entries.shape[0]}, read {n_read}  "
-              f"pairs walked {pairs}")
+              f"{bound:.4f} ms ({bound_by})  entries {b.gauss_id.numel()}, read {act['reads']}")
     return rows, bound, bound_by
 
 
@@ -366,12 +519,12 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
 
     from g4splat_torch.ops.rasterize import postprocess, render
     from g4splat_torch.ops.rasterize_common import preprocess
-    from g4splat_torch.ops.rasterize_cuda import pack_entries, rasterize_entries
+    from g4splat_torch.ops.rasterize_cuda import rasterize_entries, splat_table
     from g4splat_torch.ops.rasterize_tiled import bin_splats
 
     W, H = cam.width, cam.height
     bg = torch.as_tensor(cfg.bg, dtype=torch.float32).to(DEVICE)
-    stages = ("preprocess", "bin", "pack", "kernel", "post")
+    stages = ("preprocess", "bin", "table", "kernel", "post")
     splits, totals = {s: [] for s in stages}, []
     for i in range(reps + 1):
         torch.cuda.synchronize()
@@ -388,9 +541,9 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
         b = bin_splats(prep, W, H, max_tiles_per_splat=cfg.max_tiles_per_splat,
                        ellipse_prune=cfg.tile_ellipse_prune)
         ev[2].record()
-        entries = pack_entries(prep, b.gauss_id)
+        table = splat_table(prep)
         ev[3].record()
-        maps = rasterize_entries(entries, b.tile_start, b.tile_count, bg, W, H,
+        maps = rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count, bg, W, H,
                                  near=cfg.near, far=cfg.far, want_aux=need_aux,
                                  want_dist=cfg.compute_distortion)
         ev[4].record()
@@ -409,7 +562,7 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
     return float(np.median(totals))
 
 
-def bwd_inputs(b, entries, w, h, want_dist, seed):
+def bwd_inputs(b, table, w, h, want_dist, seed):
     """B1's saved aux (the kernel in mode want_aux=True) and a seeded random
     cotangent image, as the autograd Function hands them to B2."""
     import torch
@@ -418,17 +571,17 @@ def bwd_inputs(b, entries, w, h, want_dist, seed):
     from g4splat_torch.ops.rasterize_cuda_bwd import COT_C
 
     bg = torch.tensor([0.05, 0.1, 0.15], device=DEVICE)
-    maps = rasterize_entries(entries, b.tile_start, b.tile_count, bg, w, h,
+    maps = rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count, bg, w, h,
                              want_aux=True, want_dist=want_dist)
     aux = torch.stack([maps["final_T"], maps["n_contrib"].to(torch.float32),
                        maps["m1_tot"], maps["m2_tot"]], -1)
     cot = np.random.RandomState(seed).randn(h, w, COT_C).astype(np.float32)
     cot[..., 10:] = 0.0
-    return (entries, b.gauss_id, b.tile_start, b.tile_count, aux,
+    return (table, b.gauss_id, b.tile_start, b.tile_count, aux,
             torch.from_numpy(cot).to(DEVICE), bg, w, h)
 
 
-def bwd_vs_plain(tag, b, entries, w, h, n_splats, seed=0):
+def bwd_vs_plain(tag, b, table, w, h, seed=0):
     """B2 and its plain version on the same card tensors, in both modes.
     Returns {want_dist: (kernel args, the plain version's work stats)}."""
     global max_abs_err_bwd
@@ -441,7 +594,7 @@ def bwd_vs_plain(tag, b, entries, w, h, n_splats, seed=0):
 
     runs = {}
     for want_dist in (False, True):
-        args = bwd_inputs(b, entries, w, h, want_dist, seed) + (n_splats,)
+        args = bwd_inputs(b, table, w, h, want_dist, seed)
         got = rasterize_backward(*args, want_dist=want_dist)
         stats = {}
         ref = rasterize_backward_plain(*args, want_dist=want_dist,
@@ -489,47 +642,17 @@ def bwd_bound(stats, w, h, n_tiles, want_dist):
 
 
 def walk_activity(tag, args):
-    """B2's (warp, entry) steps at these inputs, from the plain version's
-    intersections: walked (8 warps per tile entry), with a lane inside its
-    n_contrib, with a contributing lane, and skipped by the entries' reach
-    boxes (rasterize_cuda_bwd.reach_boxes). Checks that no contributing
-    (entry, pixel) pair lies outside its entry's box: the box lets a warp
-    skip an entry, and a skipped contributor would corrupt its pixel's
-    walk without a trace. Returns the counts."""
-    from g4splat_torch.ops import rasterize_cuda_bwd as bwd
-
-    entries, gid, tile_start, tile_count, aux, cot, bg, w, h = args[:9]
-    gx, aux_t, cot_t, walk, ent, order, bg = bwd._plain_setup(
-        entries, gid, tile_start, tile_count, aux, cot, bg, w, h, 0.2, 100.0)
-    box = bwd.reach_boxes(entries)
-    n = dict(walked=0, active=0, contributing=0, skipped=0, outside=0)
-    for b0 in range(0, order.numel(), 64):
-        t = order[b0:b0 + 64]
-        b = bwd._Batch(t, gx, tile_start, walk[t], aux_t, cot_t, bg)
-        last = int(b.last.max())
-        for lo in range(0, last, 64):
-            pos, idx, _, _, _, _, contrib, _, _, _ = ent.chunk(b, lo, min(lo + 64, last))
-            nb, K = contrib.shape[:2]
-            inside = (pos[None, :] < b.last[:, None])[..., None]         # (nb, K, 1)
-            bx = box[idx]
-            px, py = b.px[:, None, :].double(), b.py[:, None, :].double()
-            in_box = ((px >= bx[..., 0:1]) & (px <= bx[..., 1:2])
-                      & (py >= bx[..., 2:3]) & (py <= bx[..., 3:4]))
-            n["outside"] += int((contrib & ~in_box & inside).sum())
-            wx = b.px.view(nb, 8, 32)[..., 0][:, None].double()
-            wy = b.py.view(nb, 8, 32)[..., 0][:, None].double()
-            reach = ((bx[..., 0:1] <= wx + 15) & (bx[..., 1:2] >= wx)
-                     & (bx[..., 2:3] <= wy + 1) & (bx[..., 3:4] >= wy))     # (nb, K, 8)
-            live = (pos[None, :, None] < b.nc[:, None, :]).view(nb, K, 8, 32).any(-1) & inside
-            n["walked"] += int(inside.sum()) * 8
-            n["active"] += int(live.sum())
-            n["contributing"] += int((contrib.view(nb, K, 8, 32).any(-1) & inside).sum())
-            n["skipped"] += int((live & ~reach).sum())
+    """B2's walk on its inputs `args` (box_scan up to each pixel's n_contrib).
+    Checks that no contributing (entry, pixel) pair lies outside its entry's
+    box: the box lets a warp skip an entry, and a skipped contributor would
+    corrupt its pixel's walk without a trace. Returns the counts."""
+    table, gid, tile_start, tile_count, aux, cot, bg, w, h = args
+    n, _ = box_scan(table, gid, tile_start, tile_count, aux[..., 1], aux[..., 1], w, h)
     check(n["outside"] == 0, f"{tag}: every contributing (entry, pixel) pair lies inside the "
           f"entry's reach box ({n['outside']} outside)")
     print(f"  {tag}: (warp, entry) steps walked {n['walked']}, with a lane inside n_contrib "
-          f"{n['active']}, with a contributing lane {n['contributing']}, skipped by the reach "
-          f"boxes {n['skipped']} ({100 * n['skipped'] / max(n['active'], 1):.1f} % of the active)")
+          f"{n['live']}, with a contributing lane {n['contributing']}, skipped by the reach "
+          f"boxes {n['skipped']} ({100 * n['skipped'] / max(n['live'], 1):.1f} % of the active)")
     return n
 
 
@@ -558,8 +681,8 @@ def worklist_vs_plain(tag, args, want_dist):
     from g4splat_torch.ops import rasterize_cuda_bwd as bwd
 
     n_tiles = args[3].numel()
-    grad = torch.zeros((args[9], bwd.GRAD_F), device=DEVICE)
-    got = bwd.worklist(bwd.launch_backward(args[:9], grad, want_dist=want_dist), n_tiles)
+    grad = torch.zeros((args[0].shape[0], bwd.GRAD_F), device=DEVICE)
+    got = bwd.worklist(bwd.launch_backward(args, grad, want_dist=want_dist), n_tiles)
     walk = bwd.tile_walks(args[4], args[3], args[7], args[8])
     ref = bwd.tile_order_plain(walk)
     bucket = bwd.walk_buckets(walk)
@@ -1085,11 +1208,13 @@ def main():
         scene = build_scene(n3, seed, spread=spread, wall=False, opacity=0.7,
                             log_scale=(-3.5, -2.0))
         with torch.no_grad():
-            b, entries = kernel_inputs(cam3, scene)
-            print(f"  {tag}: {entries.shape[0]} entries, densest tile "
+            b, table = kernel_inputs(cam3, scene)
+            print(f"  {tag}: {b.gauss_id.numel()} entries, densest tile "
                   f"{int(b.tile_count.max())}")
-            _, seen = kernel_vs_plain(tag, b, entries, w3, h3)
-            runs3 = bwd_vs_plain(tag, b, entries, w3, h3, scene.capacity)
+            seen, ref = kernel_vs_plain(tag, b, table, w3, h3)
+            gathered_bitwise(tag, b, table, w3, h3)
+            fwd_activity(tag, b, table, ref, w3, h3)
+            runs3 = bwd_vs_plain(tag, b, table, w3, h3)
             walk_activity(tag, runs3[False][0])
             worklist_vs_plain(tag, runs3[True][0], True)
             print_b2_times(tag, runs3, w3, h3, b.tile_count.numel())
@@ -1138,8 +1263,15 @@ def main():
     print(f"  16 frames in {main_s:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with torch.no_grad():
-        b4, e4 = kernel_inputs(cams[0], scene)
-        work4, _ = kernel_vs_plain("main frame 0", b4, e4, W, H, modes=("infer", "nodist"))
+        # B1 against its plain version, and its reach boxes, on every orbit
+        # frame; frame 0 is the one timed.
+        for i, cam in enumerate(cams):
+            bi, ti = kernel_inputs(cam, scene)
+            _, ref = kernel_vs_plain(f"main frame {i}", bi, ti, W, H, quiet=i > 0)
+            act = fwd_activity(f"main frame {i}", bi, ti, ref, W, H)
+            if i == 0:
+                b4, t4, act4 = bi, ti, act
+        del bi, ti, ref
 
     n5, w5, h5 = BIG_SHAPE
     print(f"== phase 5: production shape, {n5} splats, SH 3, {w5}x{h5}")
@@ -1148,10 +1280,13 @@ def main():
     cam5 = lookat_camera([0, -0.8, -6.5], [0, 0, 0], [0, -1, 0], fx=600.0 * w5 / 768,
                          fy=600.0 * w5 / 768, width=w5, height=h5, device=DEVICE)
     with torch.no_grad():
-        b5, e5 = kernel_inputs(cam5, big)
-        print(f"  {e5.shape[0]} entries, densest tile {int(b5.tile_count.max())}")
-        work5, _ = kernel_vs_plain("production", b5, e5, w5, h5)
-        runs5 = bwd_vs_plain("production", b5, e5, w5, h5, big.capacity)
+        b5, t5 = kernel_inputs(cam5, big)
+        print(f"  {b5.gauss_id.numel()} entries, densest tile {int(b5.tile_count.max())}")
+        _, ref5 = kernel_vs_plain("production", b5, t5, w5, h5)
+        gathered_bitwise("production", b5, t5, w5, h5)
+        act5 = fwd_activity("production", b5, t5, ref5, w5, h5)
+        del ref5
+        runs5 = bwd_vs_plain("production", b5, t5, w5, h5)
         for want_dist, (args5, _) in runs5.items():
             walk_activity(f"production [{'full' if want_dist else 'nodist'}]", args5)
         print_b2_times("production", runs5, w5, h5, b5.tile_count.numel())
@@ -1165,15 +1300,17 @@ def main():
     print("== phase 6: timing")
     with torch.no_grad():
         tag4, tag5 = f"{W}x{H} {n4}", f"{w5}x{h5} {n5}"
-        rows4, bound4, by4 = time_kernel(tag4, b4, e4, W, H, work4, MODES)
-        time_kernel(tag5, b5, e5, w5, h5, work5, MODES)
+        rows4, bound4, by4 = time_kernel(tag4, b4, t4, W, H, act4[0], MODES)
+        time_kernel(tag5, b5, t5, w5, h5, act5[0], MODES)
+        print_b1_walk(tag4, act4, b4)
+        print_b1_walk(tag5, act5, b5)
         for mode, cfg, need_aux in main_cfgs:
             time_render(f"{tag4} [{mode}]", cams[0], scene, cfg, need_aux)
         for mode, (a, d) in MODES.items():
             time_render(f"{tag5} [{mode}]", cam5, big,
                         RenderConfig(compute_distortion=d), a, reps=3)
     print("  library_ms: none (no single PyTorch call computes this function)")
-    del big, b5, e5, out5
+    del big, b5, t5, out5
 
     nc, wc, hc = CHAIN_SHAPE
     print(f"== phase 7: whole-chain gradients, cuda vs tiled backend, {nc} splats, SH 3, "
@@ -1204,7 +1341,7 @@ def main():
     # from view 0. The state after training depends on the run (atomics), so
     # the gated comparison reads this one.
     with torch.no_grad():
-        b8, e8 = kernel_inputs(camera_at(cams8, 0), trainer.scene)
+        b8, t8 = kernel_inputs(camera_at(cams8, 0), trainer.scene)
     torch.cuda.synchronize()
     rasterize_cuda.RASTERIZE_FWD.launches = 0
     rasterize_cuda_bwd.RASTERIZE_BWD.launches = 0
@@ -1265,12 +1402,13 @@ def main():
     check(hist[n_steps - 1]["psnr"] > hist[0]["psnr"],
           f"last PSNR {hist[n_steps - 1]['psnr']:.3f} > first {hist[0]['psnr']:.3f}")
     print(f"  peak memory {peak8:.2f} GiB")
-    # B2 skips entries by their reach boxes on every step, so the boxes are
-    # checked on the scene training left too (view 0, seeded cotangents).
+    # B1 and B2 skip entries by their reach boxes on every step, so the boxes
+    # are checked on the scene training left too (view 0, seeded cotangents).
     with torch.no_grad():
-        b8t, e8t = kernel_inputs(camera_at(cams8, 0), trainer.scene)
-        walk_activity("trained scene", bwd_inputs(b8t, e8t, w8, h8, False, 8))
-        del b8t, e8t
+        b8t, t8t = kernel_inputs(camera_at(cams8, 0), trainer.scene)
+        fwd_activity("trained scene", b8t, t8t, plain_walk(b8t, t8t, w8, h8), w8, h8)
+        walk_activity("trained scene", bwd_inputs(b8t, t8t, w8, h8, False, 8))
+        del b8t, t8t
 
     print("== phase 9: training timing")
     plain_steps = [t for t, d, dist in step_ms[2:] if not d and not dist]
@@ -1291,9 +1429,12 @@ def main():
     print("  step split ms (CUDA events, median of 3; densify: one call, host clock): "
           + " ".join(f"{k} {v:.3f}" for k, v in split.items()))
     with torch.no_grad():
-        print(f"  training shape (the first step's scene, view 0): {e8.shape[0]} entries, "
+        print(f"  training shape (the first step's scene, view 0): {b8.gauss_id.numel()} entries, "
               f"densest tile {int(b8.tile_count.max())}")
-        runs8 = bwd_vs_plain("training shape", b8, e8, w8, h8, cap)
+        act8 = fwd_activity("training shape", b8, t8, plain_walk(b8, t8, w8, h8), w8, h8)
+        print_b1_walk("training shape", act8, b8, modes=("nodist", "full"))
+        b1_bound("training shape", act8[0], b8.tile_count.numel(), w8, h8)
+        runs8 = bwd_vs_plain("training shape", b8, t8, w8, h8)
         rows8 = {}
         for want_dist, (args, stats) in runs8.items():
             mode = "full" if want_dist else "nodist"
@@ -1313,8 +1454,7 @@ def main():
                 *args, want_dist=want_dist, max_elems=PLAIN_BWD_ELEMS), reps=1, warmup=0)
             bound, by = bwd_bound(stats, w8, h8, b8.tile_count.numel(), want_dist)
             f_ms = cuda_ms(lambda: rasterize_cuda.rasterize_entries(
-                args[0], args[2], args[3], args[6], w8, h8, want_aux=True,
-                want_dist=want_dist))
+                *args[:4], args[6], w8, h8, want_aux=True, want_dist=want_dist))
             rows8[mode] = (k_ms, p_ms, bound, by)
             print(f"  B2 [{mode}] kernel {k_ms:.4f} ms (whole call)  plain {p_ms:.2f} ms  "
                   f"bound {bound:.4f} ms ({by}); B1 [{mode}] at this shape {f_ms:.4f} ms")
@@ -1323,7 +1463,7 @@ def main():
     print("== phase 10: B3 (attention) vs its plain version (chunked_attention); "
           f"tolerance max|kernel - plain| <= {B3_TOL} * max|plain|, and at ±30 logits "
           f"max|kernel - ref64| <= max({B3_TOL} * max|ref64|, {B3_TOL64} * max|plain - ref64|)")
-    del trainer, views8, b8, e8, runs8
+    del trainer, views8, b8, t8, runs8
     torch.cuda.empty_cache()
     from g4splat_torch.ops import attention_cuda
     from g4splat_torch.ops.attention import chunked_attention

@@ -24,8 +24,9 @@
 //
 // Design: one block of 256 threads, one per pixel, walks a whole tile back to
 // front over the first `walk` entries of its range, walk = min(deepest
-// n_contrib in the tile, tile count). Three launches on the caller's stream,
-// no host sync:
+// n_contrib in the tile, tile count). Entry i's row is row gauss_id[i] of the
+// per-splat table (rasterize_common.cuh), the row its gradients go to. Three
+// launches on the caller's stream, no host sync:
 //   1. tile_walk: one block per tile, its walk;
 //   2. tile_order: one block; the tiles that walk any entry, longest walk
 //      first (a counting sort over NBUCKET lengths), and the tile counter;
@@ -62,22 +63,15 @@
 
 #include <algorithm>
 
+#include "rasterize_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int NWARP = NPIX / 32;
 constexpr int BATCH = 32;    // entries staged per round
 constexpr int GRAD_F = 18;   // dT(9) d_center(2) d_opacity d_rgb(3) d_normal(3)
 constexpr int COT_C = 12;    // gC(3) gN(3) gD gA' g_dist g_med pad(2)
 constexpr int ORDER_THREADS = 1024;
 constexpr int NBUCKET = 32;  // walk lengths the tile order tells apart
-constexpr float FILTER_INV_SQUARE = 2.0f;
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_CLAMP = 0.99f;
-constexpr float CUTOFF_SQ = 9.0f;
-constexpr float BOX_MARGIN = 1.0f;   // pixels around an entry's reach box
-constexpr float BIG = 3.0e38f;
 
 // The work list, laid out in the caller's int scratch (2 n_tiles + 2 ints).
 struct Work {
@@ -99,68 +93,24 @@ struct Stage {
   int gid[BATCH];
 };
 
-// The screen box (x0, x1, y0, y1) outside which an entry reaches no pixel
-// (rasterize_cuda_bwd.reach_boxes is its plain version). alpha >= 1/255
-// needs rho = min(rho3d, rho2d) <= R = 2 ln(opa * 255). rho2d <= R within
-// sqrt(R / 2) of the low-pass centre; rho3d <= R inside the image of the disk
-// |(u, v)|^2 <= R, which its tangent lines bound (the dual conic
-// M diag(R, R, -1) M^T, as the reference's AABB) when the disk lies on one
-// side of the camera plane, R (Tw0^2 + Tw1^2) < Tw2^2; else the box is
-// unbounded. In double, with R widened by 0.1 % + 1e-3 and the box by
-// BOX_MARGIN pixels, so that fp32 rounding in rho stays inside.
-__device__ float4 reach_box(float Tu0, float Tu1, float Tu2, float Tv0, float Tv1, float Tv2,
-                            float Tw0, float Tw1, float Tw2, float cx, float cy, float opa) {
-  if (!(opa >= ALPHA_EPS)) return make_float4(BIG, -BIG, BIG, -BIG);
-  double R = 2.0 * log(static_cast<double>(opa) / static_cast<double>(ALPHA_EPS));
-  R = fmax(R, 0.0) * 1.001 + 1e-3;
-  const double u0 = Tu0, u1 = Tu1, u2 = Tu2, v0 = Tv0, v1 = Tv1, v2 = Tv2;
-  const double w0 = Tw0, w1 = Tw1, w2 = Tw2;
-  const double a = R * (w0 * w0 + w1 * w1);
-  const double dist = a - w2 * w2;
-  if (!(dist < -1e-6 * (a + w2 * w2))) return make_float4(-BIG, BIG, -BIG, BIG);
-  const double X = (R * (u0 * w0 + u1 * w1) - u2 * w2) / dist;
-  const double Y = (R * (v0 * w0 + v1 * w1) - v2 * w2) / dist;
-  const double hx = sqrt(fmax(X * X - (R * (u0 * u0 + u1 * u1) - u2 * u2) / dist, 0.0));
-  const double hy = sqrt(fmax(Y * Y - (R * (v0 * v0 + v1 * v1) - v2 * v2) / dist, 0.0));
-  const double r2 = sqrt(R / FILTER_INV_SQUARE);
-  return make_float4(static_cast<float>(fmin(cx - r2, X - hx) - BOX_MARGIN),
-                     static_cast<float>(fmax(cx + r2, X + hx) + BOX_MARGIN),
-                     static_cast<float>(fmin(cy - r2, Y - hy) - BOX_MARGIN),
-                     static_cast<float>(fmax(cy + r2, Y + hy) + BOX_MARGIN));
-}
-
-// Threads 0..n-1 stage entries e0..e0+n-1 (the caller syncs after).
-__device__ __forceinline__ void stage_entries(Stage& s, const float4* __restrict__ entries,
+// Threads 0..n-1 stage entries e0..e0+n-1, rows gauss_id[e] of the table
+// (the caller syncs after).
+__device__ __forceinline__ void stage_entries(Stage& s, const float4* __restrict__ table,
                                               const int* __restrict__ gauss_id, int e0, int n) {
   if (threadIdx.x < n) {
-    const int e = e0 + threadIdx.x;
-    const float4* row = entries + static_cast<size_t>(e) * 4;
-    const float4 a = row[0], b = row[1], c = row[2], d = row[3];
-    const float Tu0 = a.x, Tu1 = a.y, Tu2 = a.z;
-    const float Tv0 = a.w, Tv1 = b.x, Tv2 = b.y;
-    const float Tw0 = b.z, Tw1 = b.w, Tw2 = c.x;
     const int j = threadIdx.x;
-    // Low-pass centre from the dual conic, as in the forward kernel.
-    const float cdist = CUTOFF_SQ * (Tw0 * Tw0 + Tw1 * Tw1) - Tw2 * Tw2;
-    const bool cok = fabsf(cdist) > 1e-12f;
-    const float cinv = 1.0f / (cok ? cdist : 1.0f);
-    const float cx = cok ? (CUTOFF_SQ * (Tu0 * Tw0 + Tu1 * Tw1) - Tu2 * Tw2) * cinv : 0.f;
-    const float cy = cok ? (CUTOFF_SQ * (Tv0 * Tw0 + Tv1 * Tw1) - Tv2 * Tw2) * cinv : 0.f;
-    s.geo[j][0] = a;
-    s.geo[j][1] = b;
-    s.geo[j][2] = make_float4(Tw2, cx, cy, c.y);
-    s.col[j][0] = make_float4(c.z, c.w, d.x, d.y);
-    s.col[j][1] = make_float4(d.z, d.w, 0.f, 0.f);
-    s.box[j] = reach_box(Tu0, Tu1, Tu2, Tv0, Tv1, Tv2, Tw0, Tw1, Tw2, cx, cy, c.y);
-    s.gid[j] = gauss_id[e];
+    const int g = gauss_id[e0 + j];
+    const Row r = load_row(table, g);
+    const float2 c = conic_centre(r);
+    s.geo[j][0] = r.a;
+    s.geo[j][1] = r.b;
+    s.geo[j][2] = make_float4(r.c.x, c.x, c.y, r.c.y);
+    s.col[j][0] = make_float4(r.c.z, r.c.w, r.d.x, r.d.y);
+    s.col[j][1] = make_float4(r.d.z, r.d.w, 0.f, 0.f);
+    s.box[j] = reach_box(r.a.x, r.a.y, r.a.z, r.a.w, r.b.x, r.b.y, r.b.z, r.b.w, r.c.x,
+                         c.x, c.y, r.c.y);
+    s.gid[j] = g;
   }
-}
-
-// Whether staged entry j's reach box meets a warp's 16 x 2 pixels, the row
-// pair from (wx, wy): the same answer on every lane of the warp.
-__device__ __forceinline__ bool reaches(const Stage& s, int j, float wx, float wy) {
-  const float4 b = s.box[j];
-  return b.x <= wx + (TILE - 1) && b.y >= wx && b.z <= wy + 1.f && b.w >= wy;
 }
 
 // The ray-surfel intersection of staged entry j at pixel (px, py), as the
@@ -316,7 +266,7 @@ static_assert(GRAD_F == 18, "warp_fold's steps are laid out for 18 values");
 // per SM let ptxas take 96 registers (2 blocks), 15 % slower.
 template <bool WANT_DIST>
 __global__ void __launch_bounds__(NPIX, 3)
-walk_kernel(const float4* __restrict__ entries, const int* __restrict__ gauss_id,
+walk_kernel(const float4* __restrict__ table, const int* __restrict__ gauss_id,
             const int* __restrict__ tile_start, const float4* __restrict__ aux,
             const float* __restrict__ cot, const float* __restrict__ bg,
             int width, int height, int gx, float znear, float zfar, Work w,
@@ -374,14 +324,14 @@ walk_kernel(const float4* __restrict__ entries, const int* __restrict__ gauss_id
       const int lo = max(hi - BATCH, 0);
       const int n = hi - lo;
       __syncthreads();   // the previous round's atomics have read s.gid and s_part
-      stage_entries(s, entries, gauss_id, start + lo, n);
+      stage_entries(s, table, gauss_id, start + lo, n);
       __syncthreads();
 
       for (int j = n - 1; j >= 0; --j) {
         float mine = 0.f;
         // A warp that the entry cannot reach skips it whole (no contributor
         // is lost: the box bounds every pixel with alpha >= 1/255).
-        if (reaches(s, j, wx, wy)) {
+        if (box_meets_warp(s.box[j], wx, wy)) {
           float v[GRAD_F];
 #pragma unroll
           for (int i = 0; i < GRAD_F; ++i) v[i] = 0.f;
@@ -495,7 +445,7 @@ cudaError_t persistent_blocks(K kernel, int n_tiles, int* blocks) {
 }
 
 template <bool D>
-cudaError_t launch(const float* entries, const int* gauss_id, const int* tile_start,
+cudaError_t launch(const float* table, const int* gauss_id, const int* tile_start,
                    const int* tile_count, const float* aux, const float* cot, const float* bg,
                    int width, int height, float znear, float zfar, int* iscratch, float* grad,
                    cudaStream_t stream) {
@@ -508,7 +458,7 @@ cudaError_t launch(const float* entries, const int* gauss_id, const int* tile_st
   if (e != cudaSuccess) return e;
   tile_walk_kernel<<<n_tiles, NPIX, 0, stream>>>(a4, tile_count, width, height, gx, w.walk);
   tile_order_kernel<<<1, ORDER_THREADS, 0, stream>>>(n_tiles, w);
-  walk_kernel<D><<<blocks, NPIX, 0, stream>>>(reinterpret_cast<const float4*>(entries), gauss_id,
+  walk_kernel<D><<<blocks, NPIX, 0, stream>>>(reinterpret_cast<const float4*>(table), gauss_id,
                                               tile_start, a4, cot, bg, width, height, gx, znear,
                                               zfar, w, grad);
   return cudaGetLastError();
@@ -530,7 +480,7 @@ cudaError_t kernel_info(K kernel, int* out) {
 // The backward. iscratch holds 2 n_tiles + 2 ints (the work list: tile walks,
 // tile order, counters), which it leaves filled in. Adds into `grad` (the
 // caller zeroes it). Returns the first CUDA error (0 on success).
-extern "C" int g4_rasterize_bwd(const float* entries, const int* gauss_id,
+extern "C" int g4_rasterize_bwd(const float* table, const int* gauss_id,
                                 const int* tile_start, const int* tile_count,
                                 const float* aux, const float* cot, const float* bg,
                                 int width, int height, float znear, float zfar,
@@ -538,9 +488,9 @@ extern "C" int g4_rasterize_bwd(const float* entries, const int* gauss_id,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (width <= 0 || height <= 0) return 0;
   return static_cast<int>(want_dist
-      ? launch<true>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
+      ? launch<true>(table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
                      znear, zfar, iscratch, grad, s)
-      : launch<false>(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
+      : launch<false>(table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
                       znear, zfar, iscratch, grad, s));
 }
 

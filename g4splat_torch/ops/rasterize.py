@@ -81,9 +81,9 @@ def render(
         n_dropped, n_overflow = binning.n_dropped, binning.n_overflow
     elif backend == "cuda":
         from g4splat_torch.ops.rasterize_cuda import (
-            pack_entries,
             rasterize_diff,
             rasterize_entries,
+            splat_table,
         )
         from g4splat_torch.ops.rasterize_tiled import bin_splats
 
@@ -100,10 +100,9 @@ def render(
                     "render(backend='cuda', need_aux=False) is the forward-only "
                     "inference path; use need_aux=True for gradients, or run "
                     "under torch.no_grad()")
-            entries = pack_entries(prep, binning.gauss_id)
-            maps = rasterize_entries(entries, binning.tile_start, binning.tile_count,
-                                     bg, W, H, near=config.near, far=config.far,
-                                     want_aux=False)
+            maps = rasterize_entries(splat_table(prep), binning.gauss_id,
+                                     binning.tile_start, binning.tile_count, bg, W, H,
+                                     near=config.near, far=config.far, want_aux=False)
         n_dropped, n_overflow = binning.n_dropped, binning.n_overflow
     else:
         raise ValueError(f"unknown backend {backend!r}")

@@ -9,21 +9,25 @@ read and `OUT_BYTES_PER_PIXEL` per pixel written once. A tile needs only the
 entries up to the point where its last pixel saturates, a few hundred in the
 frames measured (PERF.md), so the arithmetic on the pairs walked binds, at
 2.4M splats as at 200k. The design keeps every per-pair operand on chip:
-per-entry terms are computed once per tile batch into shared memory and
-read as broadcasts, each pixel stops at T < 1e-4, and a block-wide vote
-ends the walk of a saturated tile.
+per-entry terms and each entry's reach box are computed once per tile batch
+into shared memory and read as broadcasts, a warp walks only the entries
+whose box meets its pixels, each pixel stops at T < 1e-4, and a block-wide
+vote ends the walk of a saturated tile.
 
 `rasterize_entries` dispatches on the tensors' device: on CUDA tensors it
 launches the kernel (or raises), on CPU tensors it runs the plain version.
 There is no fallback from one to the other.
 
 `rasterize_diff` is the differentiable composite: one `torch.autograd.Function`
-that packs the entry table and runs B1 forward, and runs B2
+that builds the splat table and runs B1 forward, and runs B2
 (`rasterize_cuda_bwd`) backward (counterpart of `_render_pallas_diff`).
 
-The entry table is `rasterize_common.ENTRY_F` (16) float32 columns per entry:
-0-8 T (rows Tu, Tv, Tw), 9 opacity (0 for culled splats), 10-12 rgb,
-13-15 view-space normal. The low-pass centre is recomputed from T.
+Both kernels read entry i of a tile's range as row `gauss_id[i]` of the
+per-splat table (`splat_table`), `rasterize_common.ENTRY_F` (16) float32
+columns per splat: 0-8 T (rows Tu, Tv, Tw), 9 opacity (0 for culled
+splats), 10-12 rgb, 13-15 view-space normal. The low-pass centre is
+recomputed from T. No per-entry rows are gathered: a caller that holds
+per-entry rows passes them as the table with `gauss_id = arange(E)`.
 """
 
 from __future__ import annotations
@@ -68,16 +72,16 @@ RASTERIZE_FWD = KernelInfo(
 )
 
 
-def pack_entries(prep: Preprocessed, gauss_id: torch.Tensor) -> torch.Tensor:
-    """Gather per-entry features into the (E, 16) entry table (one row gather
-    from a per-splat table; culled splats carry zero opacity)."""
-    return _pack(prep.T, prep.valid, prep.opacity, prep.rgb, prep.normal, gauss_id)
+def splat_table(prep: Preprocessed) -> torch.Tensor:
+    """The (P, 16) per-splat table the kernels read through gauss_id (culled
+    splats carry zero opacity)."""
+    return _table(prep.T, prep.valid, prep.opacity, prep.rgb, prep.normal)
 
 
-def _pack(T, valid, opacity, rgb, normal, gauss_id):
+def _table(T, valid, opacity, rgb, normal):
     opa = torch.where(valid, opacity, 0.0)
     table = torch.cat([T.reshape(T.shape[0], 9), opa[:, None], rgb, normal], 1)
-    return table.to(torch.float32)[gauss_id.long()].contiguous()
+    return table.to(torch.float32).contiguous()
 
 
 def _maps(out: torch.Tensor, n_contrib: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -90,83 +94,117 @@ def _maps(out: torch.Tensor, n_contrib: torch.Tensor) -> Dict[str, torch.Tensor]
     )
 
 
-def _check_inputs(entries, tile_start, tile_count, bg, width, height):
+def check_table(table: torch.Tensor, gauss_id: torch.Tensor):
+    """Refuse a table that is not (P, 16) float32 or a gauss_id that is not
+    (E,) int32 on the table's device. The ids are not read (that would take
+    a host sync): the caller guarantees 0 <= gauss_id < P. The kernels read
+    row gauss_id[i] unchecked, so an id out of range reads outside the
+    table; the plain versions raise on it."""
+    if table.dtype != torch.float32 or table.ndim != 2 or table.shape[1] != ENTRY_F:
+        raise ValueError(f"table must be (P, {ENTRY_F}) float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if gauss_id.dtype != torch.int32 or gauss_id.ndim != 1:
+        raise ValueError(f"gauss_id must be (E,) int32, got {tuple(gauss_id.shape)} "
+                         f"{gauss_id.dtype}")
+    if gauss_id.device != table.device:
+        raise ValueError(f"gauss_id lies on {gauss_id.device}, the table on {table.device}")
+
+
+def _check_inputs(table, gauss_id, tile_start, tile_count, bg, width, height):
     n_tiles = ((width + TILE - 1) // TILE) * ((height + TILE - 1) // TILE)
-    if entries.dtype != torch.float32 or entries.ndim != 2 or entries.shape[1] != ENTRY_F:
-        raise ValueError(f"entries must be (E, {ENTRY_F}) float32, got "
-                         f"{tuple(entries.shape)} {entries.dtype}")
+    check_table(table, gauss_id)
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
         if t.dtype != torch.int32 or t.shape != (n_tiles,):
             raise ValueError(f"{name} must be ({n_tiles},) int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if bg.shape != (3,):
         raise ValueError(f"bg must be (3,), got {tuple(bg.shape)}")
-    devs = {t.device for t in (entries, tile_start, tile_count, bg)}
+    devs = {t.device for t in (table, tile_start, tile_count, bg)}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on different devices: {devs}")
 
 
-def rasterize_entries(entries: torch.Tensor, tile_start: torch.Tensor,
-                      tile_count: torch.Tensor, bg: torch.Tensor, width: int,
-                      height: int, near: float = NEAR_N, far: float = FAR_N,
-                      want_aux: bool = True, want_dist: bool = True
+def rasterize_entries(table: torch.Tensor, gauss_id: torch.Tensor,
+                      tile_start: torch.Tensor, tile_count: torch.Tensor,
+                      bg: torch.Tensor, width: int, height: int, near: float = NEAR_N,
+                      far: float = FAR_N, want_aux: bool = True, want_dist: bool = True
                       ) -> Dict[str, torch.Tensor]:
-    """Composite every tile's [start, start+count) entry range front to back.
+    """Composite every tile's [start, start+count) entry range front to back,
+    entry i being row gauss_id[i] of the (P, 16) splat table (0 <=
+    gauss_id < P, not checked: see check_table).
 
     Returns (H, W[, C]) maps: color (bg added), normal, depth_acc, alpha,
     distortion, median_depth, final_T, n_contrib (int32), m1_tot, m2_tot.
     With want_aux=False, distortion, n_contrib and the moments are zeros;
     with want_dist=False, distortion and the moments are zeros.
     """
-    _check_inputs(entries, tile_start, tile_count, bg, width, height)
-    if entries.device.type == "cpu":
-        maps = rasterize_entries_plain(entries, tile_start, tile_count, bg, width,
+    _check_inputs(table, gauss_id, tile_start, tile_count, bg, width, height)
+    if table.device.type == "cpu":
+        maps = rasterize_entries_plain(table, gauss_id, tile_start, tile_count, bg, width,
                                        height, near, far, want_aux, want_dist)
         maps.pop("n_walked")
         return maps
-    if entries.device.type != "cuda":
-        raise ValueError(f"unsupported device {entries.device}")
-    return _rasterize_entries_cuda(entries, tile_start, tile_count, bg, width,
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    return _rasterize_entries_cuda(table, gauss_id, tile_start, tile_count, bg, width,
                                    height, near, far, want_aux, want_dist)
 
 
-def _rasterize_entries_cuda(entries, tile_start, tile_count, bg, width, height,
-                            near, far, want_aux, want_dist):
+def _lib():
+    """The kernel's library, its ctypes signatures declared once per handle."""
     from g4splat_torch.ops.cuda_build import load
 
     lib = load("rasterize_fwd")
-    fn = lib.g4_rasterize_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = entries.device
-    entries = entries.contiguous()
-    tile_start = tile_start.contiguous()
-    tile_count = tile_count.contiguous()
-    bg = bg.to(torch.float32).contiguous()
+    if not getattr(lib, "_g4_bound", False):
+        lib.g4_rasterize_fwd.argtypes = ([ctypes.c_void_p] * 5
+                                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                            ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                                         + [ctypes.c_void_p] * 3)
+        lib.g4_rasterize_fwd.restype = ctypes.c_int
+        lib.g4_rasterize_fwd_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.g4_rasterize_fwd_info.restype = ctypes.c_int
+        lib._g4_bound = True
+    return lib
+
+
+def _rasterize_entries_cuda(table, gauss_id, tile_start, tile_count, bg, width, height,
+                            near, far, want_aux, want_dist):
+    dev = table.device
+    ts = [t.contiguous() for t in (table, gauss_id, tile_start, tile_count,
+                                   bg.to(torch.float32))]
     out = torch.empty((height, width, OUT_C), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(entries.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-                 bg.data_ptr(), int(width), int(height), float(near), float(far),
-                 int(bool(want_aux)), int(bool(want_aux and want_dist)),
-                 out.data_ptr(), n_contrib.data_ptr(), stream)
+        err = _lib().g4_rasterize_fwd(
+            *(t.data_ptr() for t in ts), int(width), int(height), float(near), float(far),
+            int(bool(want_aux)), int(bool(want_aux and want_dist)),
+            out.data_ptr(), n_contrib.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd launch failed: CUDA error {err}")
     RASTERIZE_FWD.launches += 1
     return _maps(out, n_contrib)
 
 
-def rasterize_entries_plain(entries: torch.Tensor, tile_start: torch.Tensor,
-                            tile_count: torch.Tensor, bg: torch.Tensor,
-                            width: int, height: int, near: float = NEAR_N,
-                            far: float = FAR_N, want_aux: bool = True,
-                            want_dist: bool = True, chunk: int = 256,
-                            max_elems: int = 1 << 21) -> Dict[str, torch.Tensor]:
+def kernel_info(want_aux: bool, want_dist: bool) -> Dict[str, int]:
+    """The mode's kernel: registers, spill bytes, static shared bytes and
+    resident blocks per SM on the current card, and the card's SM count."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().g4_rasterize_fwd_info(int(bool(want_aux)), int(bool(want_aux and want_dist)),
+                                       ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"rasterize_fwd info failed: CUDA error {err}")
+    keys = ("registers", "spill_bytes", "shared_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, out))
+
+
+def rasterize_entries_plain(table: torch.Tensor, gauss_id: torch.Tensor,
+                            tile_start: torch.Tensor, tile_count: torch.Tensor,
+                            bg: torch.Tensor, width: int, height: int,
+                            near: float = NEAR_N, far: float = FAR_N,
+                            want_aux: bool = True, want_dist: bool = True,
+                            chunk: int = 256, max_elems: int = 1 << 21
+                            ) -> Dict[str, torch.Tensor]:
     """The kernel's function in plain PyTorch, with the same inputs and
     outputs, on any device.
 
@@ -178,14 +216,16 @@ def rasterize_entries_plain(entries: torch.Tensor, tile_start: torch.Tensor,
     is; a batch stops once all its pixels are saturated. Besides the
     kernel's maps it returns `n_walked`, the number of entries each pixel had
     to evaluate (up to and including the one that stops it), which counts
-    the kernel's work.
+    the kernel's work. Each chunk reads its rows from the table through
+    gauss_id, as the kernel does.
     """
-    dev = entries.device
+    dev = table.device
     gx = (width + TILE - 1) // TILE
     n_tiles = gx * ((height + TILE - 1) // TILE)
-    E = entries.shape[0]
-    entries = entries.to(torch.float32)
-    T_all = entries[:, :9].reshape(E, 3, 3)
+    E = gauss_id.shape[0]
+    gid = gauss_id.long()
+    table = table.to(torch.float32)
+    T_all = table[:, :9].reshape(table.shape[0], 3, 3)
     center_all, _, ok = conic_center(T_all)
     center_all = torch.where(ok[:, None], center_all, 0.0)   # as the kernel's
     no_bg = torch.zeros(3, device=dev)
@@ -218,8 +258,8 @@ def rasterize_entries_plain(entries: torch.Tensor, tile_start: torch.Tensor,
             if bool(done.all()):
                 break
             n_in = torch.clamp(cnt - c0, 0, chunk)[:, None]      # (nb, 1)
-            idx = torch.clamp(st[:, None] + c0 + ks, max=E - 1)  # (nb, chunk)
-            g = entries[idx]
+            idx = gid[torch.clamp(st[:, None] + c0 + ks, max=E - 1)]  # (nb, chunk) rows
+            g = table[idx]
             alpha, z = alpha_depth(T_all[idx], center_all[idx], g[..., 9],
                                    ks < n_in, px, py, near)       # (nb, chunk, 256)
             alpha = torch.where(done[:, None, :], 0.0, alpha)
@@ -274,12 +314,12 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, T, center, opacity, rgb, normal, valid, gauss_id, tile_start,
                 tile_count, bg, width, height, near, far, want_dist):
-        entries = _pack(T, valid, opacity, rgb, normal, gauss_id)
-        maps = rasterize_entries(entries, tile_start, tile_count, bg, width, height,
+        table = _table(T, valid, opacity, rgb, normal)
+        maps = rasterize_entries(table, gauss_id, tile_start, tile_count, bg, width, height,
                                  near, far, want_aux=True, want_dist=want_dist)
         aux = torch.stack([maps["final_T"], maps["n_contrib"].to(torch.float32),
                            maps["m1_tot"], maps["m2_tot"]], -1)
-        ctx.save_for_backward(entries, gauss_id, tile_start, tile_count, aux, valid, bg)
+        ctx.save_for_backward(table, gauss_id, tile_start, tile_count, aux, valid, bg)
         ctx.geom = (width, height, near, far, want_dist, T.shape[0])
         ctx.mark_non_differentiable(maps["n_contrib"], maps["m1_tot"], maps["m2_tot"])
         return tuple(maps[k] for k in MAP_KEYS)
@@ -287,7 +327,7 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_normal, g_depth, g_alpha, g_dist, g_med, g_final_T,
                  *_):
-        entries, gauss_id, tile_start, tile_count, aux, valid, bg = ctx.saved_tensors
+        table, gauss_id, tile_start, tile_count, aux, valid, bg = ctx.saved_tensors
         width, height, near, far, want_dist, P = ctx.geom
         # The final_T cotangent folds into the alpha channel with the opposite
         # sign (gT_end = bg·gC − gA + gFinT), as rasterize_pallas.py:689-704.
@@ -295,9 +335,9 @@ class _Rasterize(torch.autograd.Function):
                          (g_alpha - g_final_T)[..., None], g_dist[..., None],
                          g_med[..., None], g_color.new_zeros((height, width, COT_C - 10))],
                         -1).to(torch.float32)
-        grad = rasterize_backward(entries, gauss_id, tile_start, tile_count, aux, cot,
-                                  bg, width, height, P, near, far, want_dist)
-        # The packed opacity was where(valid, opacity, 0).
+        grad = rasterize_backward(table, gauss_id, tile_start, tile_count, aux, cot,
+                                  bg, width, height, near, far, want_dist)
+        # The table's opacity was where(valid, opacity, 0).
         d_opacity = grad[:, 11] * valid.to(grad.dtype)
         return (grad[:, 0:9].reshape(P, 3, 3), grad[:, 9:11], d_opacity,
                 grad[:, 12:15], grad[:, 15:18]) + (None,) * 10

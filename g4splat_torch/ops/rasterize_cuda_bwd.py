@@ -24,8 +24,10 @@ atomicAdd each.
 `rasterize_backward` dispatches on the tensors' device: on CUDA tensors it
 launches the kernel (or raises), on CPU tensors it runs the plain version.
 
-Inputs: the (E, 16) entry table, gauss_id (E,) int32, the tile ranges, the
-forward's saved aux (H, W, 4) [final_T, n_contrib, M1 total, M2 total], the
+Inputs: the (P, 16) splat table (`rasterize_cuda.splat_table`) and gauss_id
+(E,) int32 (entry i is table row gauss_id[i], and its gradients go to row
+gauss_id[i] of the output), the tile ranges, the forward's saved aux
+(H, W, 4) [final_T, n_contrib, M1 total, M2 total], the
 cotangent image (H, W, 12) [gC(3), gN(3), g_depth_acc, g_alpha − g_final_T,
 g_dist, g_median, 0, 0] and bg. Output: (P, 18) per-splat gradients
 [dT(9) (rows Tu, Tv, Tw), d_center(2), d_opacity, d_rgb(3), d_normal(3)].
@@ -42,7 +44,6 @@ from g4splat_torch.ops.cuda_build import KernelInfo
 from g4splat_torch.ops.rasterize_common import (
     ALPHA_CLAMP,
     ALPHA_EPS,
-    ENTRY_F,
     FAR_N,
     FILTER_INV_SQUARE,
     NEAR_N,
@@ -79,14 +80,12 @@ RASTERIZE_BWD = KernelInfo(
 )
 
 
-def _check_inputs(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height):
+def _check_inputs(table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height):
+    from g4splat_torch.ops.rasterize_cuda import check_table
+
     n_tiles = ((width + TILE - 1) // TILE) * ((height + TILE - 1) // TILE)
-    E = entries.shape[0]
-    if entries.dtype != torch.float32 or entries.ndim != 2 or entries.shape[1] != ENTRY_F:
-        raise ValueError(f"entries must be (E, {ENTRY_F}) float32, got "
-                         f"{tuple(entries.shape)} {entries.dtype}")
-    shapes = (("gauss_id", gauss_id, (E,), torch.int32),
-              ("tile_start", tile_start, (n_tiles,), torch.int32),
+    check_table(table, gauss_id)
+    shapes = (("tile_start", tile_start, (n_tiles,), torch.int32),
               ("tile_count", tile_count, (n_tiles,), torch.int32),
               ("aux", aux, (height, width, AUX_C), torch.float32),
               ("cot", cot, (height, width, COT_C), torch.float32))
@@ -96,29 +95,30 @@ def _check_inputs(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width
                              f"{tuple(t.shape)} {t.dtype}")
     if bg.shape != (3,):
         raise ValueError(f"bg must be (3,), got {tuple(bg.shape)}")
-    devs = {t.device for t in (entries, gauss_id, tile_start, tile_count, aux, cot, bg)}
+    devs = {t.device for t in (table, tile_start, tile_count, aux, cot, bg)}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on different devices: {devs}")
 
 
-def rasterize_backward(entries: torch.Tensor, gauss_id: torch.Tensor,
+def rasterize_backward(table: torch.Tensor, gauss_id: torch.Tensor,
                        tile_start: torch.Tensor, tile_count: torch.Tensor,
                        aux: torch.Tensor, cot: torch.Tensor, bg: torch.Tensor,
-                       width: int, height: int, n_splats: int,
-                       near: float = NEAR_N, far: float = FAR_N,
+                       width: int, height: int, near: float = NEAR_N, far: float = FAR_N,
                        want_dist: bool = True) -> torch.Tensor:
-    """Per-splat gradients (n_splats, 18) of a forward composite, from its
-    saved aux and the cotangent image. With want_dist=False the distortion
-    cotangent is ignored (the forward ran without the moments)."""
-    _check_inputs(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height)
-    if entries.device.type == "cpu":
-        return rasterize_backward_plain(entries, gauss_id, tile_start, tile_count, aux,
-                                        cot, bg, width, height, n_splats, near, far,
-                                        want_dist)
-    if entries.device.type != "cuda":
-        raise ValueError(f"unsupported device {entries.device}")
-    grad = torch.zeros((n_splats, GRAD_F), dtype=torch.float32, device=entries.device)
-    launch_backward((entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height),
+    """Per-splat gradients (P, 18), one row per table row, of a forward
+    composite, from its saved aux and the cotangent image. Entry i reads,
+    and adds its gradient into, row gauss_id[i] (0 <= gauss_id < P, not
+    checked: see rasterize_cuda.check_table). With
+    want_dist=False the distortion cotangent is ignored (the forward ran
+    without the moments)."""
+    _check_inputs(table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height)
+    if table.device.type == "cpu":
+        return rasterize_backward_plain(table, gauss_id, tile_start, tile_count, aux,
+                                        cot, bg, width, height, near, far, want_dist)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    grad = torch.zeros((table.shape[0], GRAD_F), dtype=torch.float32, device=table.device)
+    launch_backward((table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height),
                     grad, near, far, want_dist)
     return grad
 
@@ -144,13 +144,13 @@ def _lib():
 
 def launch_backward(args, grad: torch.Tensor, near: float = NEAR_N, far: float = FAR_N,
                     want_dist: bool = True) -> torch.Tensor:
-    """Launch B2 on CUDA tensors `args` = (entries, gauss_id, tile_start,
+    """Launch B2 on CUDA tensors `args` = (table, gauss_id, tile_start,
     tile_count, aux, cot, bg, width, height), adding into `grad`. Counts one
     launch. Returns the work list it built (`worklist` reads it)."""
-    entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height = args
-    ts = [t.contiguous() for t in (entries, gauss_id, tile_start, tile_count, aux, cot,
+    table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height = args
+    ts = [t.contiguous() for t in (table, gauss_id, tile_start, tile_count, aux, cot,
                                    bg.to(torch.float32))]
-    dev = entries.device
+    dev = table.device
     n_tiles = ((width + TILE - 1) // TILE) * ((height + TILE - 1) // TILE)
     work = torch.empty(2 * n_tiles + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -233,22 +233,24 @@ class _Batch:
 
 
 class _Entries:
-    """The entry table's per-entry terms and the chunk geometry."""
+    """The splat table's per-row terms, the entries' rows and the chunk
+    geometry."""
 
-    def __init__(self, entries, gauss_id, near, far):
-        self.E = entries.shape[0]
-        self.gid = gauss_id
-        self.g = entries.to(torch.float32)
-        self.T = self.g[:, :9].reshape(self.E, 3, 3)
+    def __init__(self, table, gauss_id, near, far):
+        self.E = gauss_id.shape[0]
+        self.gid = gauss_id.long()
+        self.g = table.to(torch.float32)
+        self.T = self.g[:, :9].reshape(self.g.shape[0], 3, 3)
         center, _, ok = conic_center(self.T)
         self.center = torch.where(ok[:, None], center, 0.0)   # as the kernel's
         self.near, self.far = near, far
         self.m_scale = far / (far - near)
 
     def chunk(self, b: _Batch, lo: int, hi: int):
-        """Entries lo..hi-1 of each tile of the batch against its pixels."""
+        """Entries lo..hi-1 of each tile of the batch against its pixels;
+        `idx` holds their table rows."""
         pos = torch.arange(lo, hi, device=b.t.device)
-        idx = torch.clamp(b.st[:, None] + pos, max=self.E - 1)            # (nb, K)
+        idx = self.gid[torch.clamp(b.st[:, None] + pos, max=self.E - 1)]  # (nb, K) rows
         g = self.g[idx]
         Tk = self.T[idx]
         r = ray_splat(Tk, self.center[idx], b.px, b.py)                  # (nb, K, 256)
@@ -341,28 +343,28 @@ def _walk_chunk(ent: _Entries, b: _Batch, st: dict, lo: int, hi: int, grad: torc
         torch.einsum("bkp,bpc->bkc", W, b.gC),
         torch.einsum("bkp,bpc->bkc", W, b.gN)], -1)             # (nb, K, 18)
     walked = pos[None, :] < b.last[:, None]
-    gid = ent.gid[idx][walked].long()
+    gid = idx[walked]
     grad.index_add_(0, gid, rows[walked])
     if stats is not None:
         touched.append(gid[contrib.any(-1)[walked]])
     return int(contrib.sum()) if stats is not None else 0
 
 
-def _plain_setup(entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
+def _plain_setup(table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height,
                  near, far):
     gx = (width + TILE - 1) // TILE
     aux_t = disassemble_tiles(aux.to(torch.float32), width, height)   # (n_tiles, 256, 4)
     cot_t = disassemble_tiles(cot.to(torch.float32), width, height)
     walk = tile_walks(aux, tile_count, width, height)
-    ent = _Entries(entries, gauss_id, near, far)
+    ent = _Entries(table, gauss_id, near, far)
     order = torch.argsort(walk, descending=True, stable=True)
     return gx, aux_t, cot_t, walk, ent, order, bg.to(torch.float32)
 
 
-def rasterize_backward_plain(entries: torch.Tensor, gauss_id: torch.Tensor,
+def rasterize_backward_plain(table: torch.Tensor, gauss_id: torch.Tensor,
                              tile_start: torch.Tensor, tile_count: torch.Tensor,
                              aux: torch.Tensor, cot: torch.Tensor, bg: torch.Tensor,
-                             width: int, height: int, n_splats: int,
+                             width: int, height: int,
                              near: float = NEAR_N, far: float = FAR_N,
                              want_dist: bool = True, chunk: int = 64,
                              max_elems: int = 1 << 18,
@@ -384,8 +386,8 @@ def rasterize_backward_plain(entries: torch.Tensor, gauss_id: torch.Tensor,
     (distinct splats that receive a gradient).
     """
     gx, aux_t, cot_t, walk, ent, order, bg = _plain_setup(
-        entries, gauss_id, tile_start, tile_count, aux, cot, bg, width, height, near, far)
-    grad = torch.zeros((n_splats, GRAD_F), dtype=torch.float32, device=entries.device)
+        table, gauss_id, tile_start, tile_count, aux, cot, bg, width, height, near, far)
+    grad = torch.zeros((table.shape[0], GRAD_F), dtype=torch.float32, device=table.device)
     n_contribs, touched = 0, []
     if stats is not None:
         stats.update(pairs=int(aux_t[..., 1].long().sum()), rows=int(walk.sum()))
@@ -405,10 +407,11 @@ def rasterize_backward_plain(entries: torch.Tensor, gauss_id: torch.Tensor,
     return grad
 
 
-def reach_boxes(entries: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
-    """(E, 4) screen boxes (x0, x1, y0, y1), in float64, outside which an
-    entry reaches no pixel: the kernel's warps skip an entry whose box
-    misses their pixels (its plain version, for the tests).
+def reach_boxes(table: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """(P, 4) screen boxes (x0, x1, y0, y1), in float64, one per table row,
+    outside which the row's entries reach no pixel: the kernels' warps skip
+    an entry whose box misses their pixels (its plain version, for the
+    tests).
 
     alpha ≥ 1/255 needs rho = min(rho3d, rho2d) ≤ R = 2 ln(opa · 255).
     rho2d ≤ R within sqrt(R / 2) of the low-pass centre; rho3d ≤ R inside the
@@ -417,11 +420,11 @@ def reach_boxes(entries: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
     one side of the camera plane, R (Tw0² + Tw1²) < Tw2²; else the box is
     unbounded. R is widened by 0.1 % + 1e-3 and the box by `margin` pixels,
     so that fp32 rounding in the kernel's rho stays inside."""
-    g = entries.to(torch.float64)
+    g = table.to(torch.float64)
     Tu, Tv, Tw = g[:, 0:3], g[:, 3:6], g[:, 6:9]
-    center, _, ok = conic_center(entries[:, :9].reshape(-1, 3, 3))
+    center, _, ok = conic_center(table[:, :9].reshape(-1, 3, 3))
     center = torch.where(ok[:, None], center, 0.0).to(torch.float64)
-    opa = entries[:, 9]
+    opa = table[:, 9]
     reach = opa >= ALPHA_EPS
     R = 2.0 * torch.log(torch.clamp(opa.to(torch.float64), min=ALPHA_EPS) / ALPHA_EPS)
     R = torch.clamp(R, min=0.0) * 1.001 + 1e-3
@@ -442,5 +445,5 @@ def reach_boxes(entries: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
     y1 = torch.where(bounded, torch.maximum(center[:, 1] + r2, Y + hy), inf)
     box = torch.stack([x0 - margin, x1 + margin, y0 - margin, y1 + margin], 1)
     empty = torch.tensor([inf[0], -inf[0], inf[0], -inf[0]], dtype=torch.float64,
-                         device=entries.device) if entries.shape[0] else box
+                         device=table.device) if table.shape[0] else box
     return torch.where(reach[:, None], box, empty)

@@ -13,9 +13,10 @@ Run from the repository root on a machine with one CUDA card:
 
 --variant builds another source of the same interface and times it in turns
 with the default (default, variants, variants reversed, default). --parent
-builds DIR/g4splat_torch/csrc/rasterize_bwd.cu, a tree whose B2 launched
-one block per tile in tile order (its C interface, without the work-list
-scratch), and times it in the same turns.
+builds DIR/g4splat_torch/csrc/rasterize_bwd.cu, a tree whose B2 read
+gathered entry rows (the same C interface, its first argument the (E, 16)
+rows table[gauss_id], gathered once outside the timing), and times it in
+the same turns.
 """
 
 import argparse
@@ -36,41 +37,50 @@ from g4splat_torch.ops import rasterize_cuda_bwd as bwd  # noqa: E402
 from g4splat_torch.train.trainer import Trainer, TrainConfig, camera_at  # noqa: E402
 
 
-def training_shape():
-    """The kernel inputs of chip_smoke phase 9: the first step's scene
-    (mip filter applied) seen from view 0."""
+def training_trainer():
+    """A Trainer (production TrainConfig) on chip_smoke phase 8's data, its
+    cameras, and the frame's width and height."""
     n_live, cap, w, h, n_views, _, _ = cs.TRAIN_SHAPE
     init, cams, views = cs.training_data(n_live, cap, w, h, n_views)
-    trainer = Trainer(init, cams, views, TrainConfig(max_capacity=cap), seed=0)
-    with torch.no_grad():
-        b, entries = cs.kernel_inputs(camera_at(cams, 0), trainer.scene)
-    return b, entries, w, h, cap
+    return Trainer(init, cams, views, TrainConfig(max_capacity=cap), seed=0), cams, w, h
 
 
-def build(src: Path, tag: str) -> ctypes.CDLL:
-    """nvcc `src` with the port's flags into build/kernels/ and load it."""
+def training_shape():
+    """The frame of chip_smoke phase 9: view 0's camera and the first step's
+    scene (mip filter applied), and the frame's width and height."""
+    trainer, cams, w, h = training_trainer()
+    return camera_at(cams, 0), trainer.scene, w, h
+
+
+def build(src: Path, tag: str):
+    """nvcc `src` with the port's flags, and the port's csrc/ on the include
+    path, into build/kernels/ and load it. Returns the library and the
+    compiler's log."""
     out = cuda_build.BUILD_DIR / f"lib{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    log = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                         capture_output=True, text=True)
+    log = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                          "-o", str(out), str(src)], capture_output=True, text=True)
     if log.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}{log.stderr}")
     print(f"  built {src}: " + "; ".join(
         l.strip() for l in (log.stdout + log.stderr).splitlines() if "registers" in l))
-    return ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out)), log.stdout + log.stderr
 
 
-def parent_call(lib, args, want_dist):
-    """One call of the single-walk B2 (the parent's interface)."""
+def parent_call(lib, rows, args, want_dist):
+    """One call of a B2 that reads gathered rows (the parent's interface:
+    the work-list scratch, and `rows` = table[gauss_id] in the table's place)."""
     fn = lib.g4_rasterize_bwd
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_void_p]
+                                           ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ts = args[:7]
-    grad = torch.zeros((args[9], bwd.GRAD_F), device="cuda")
+    ts = (rows,) + args[1:7]
+    n_tiles = args[3].numel()
+    work = torch.empty(2 * n_tiles + 2, dtype=torch.int32, device="cuda")
+    grad = torch.zeros((args[0].shape[0], bwd.GRAD_F), device="cuda")
     err = fn(*(t.data_ptr() for t in ts), args[7], args[8], 0.2, 100.0, int(want_dist),
-             grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+             work.data_ptr(), grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"parent B2 failed: CUDA error {err}")
     return grad
@@ -102,20 +112,19 @@ def main():
     log = cuda_build.build_all(("rasterize_fwd", "rasterize_bwd"))["rasterize_bwd"]
     print("\n".join(f"  {line.strip()}" for line in log.splitlines() if "registers" in line))
     default = cuda_build.load("rasterize_bwd")
-    variants = {Path(v).stem: build(Path(v), f"variant-{Path(v).stem}") for v in a.variant}
-    parent = (build(Path(a.parent) / "g4splat_torch/csrc/rasterize_bwd.cu", "parent-bwd")
+    variants = {Path(v).stem: build(Path(v), f"variant-{Path(v).stem}")[0] for v in a.variant}
+    parent = (build(Path(a.parent) / "g4splat_torch/csrc/rasterize_bwd.cu", "parent-bwd")[0]
               if a.parent else None)
-    b, entries, w, h, cap = training_shape()
-    print(f"training shape {w}x{h}: {entries.shape[0]} entries, {b.tile_count.numel()} tiles, "
-          f"densest tile {int(b.tile_count.max())}", flush=True)
+    cam, scene, w, h = training_shape()
     with torch.no_grad():
-        runs = cs.bwd_vs_plain("training shape", b, entries, w, h, cap)
+        b, table = cs.kernel_inputs(cam, scene)
+        print(f"training shape {w}x{h}: {b.gauss_id.numel()} entries, {table.shape[0]} splats, "
+              f"{b.tile_count.numel()} tiles, densest tile {int(b.tile_count.max())}", flush=True)
+        rows = table[b.gauss_id.long()].contiguous() if parent is not None else None
+        runs = cs.bwd_vs_plain("training shape", b, table, w, h)
         for want_dist, (args, stats) in runs.items():
             mode = "full" if want_dist else "nodist"
-            hist = cs.walk_histogram(args)
-            print(f"  [{mode}] walk per tile: " + ", ".join(
-                f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}" for k, v in hist.items())
-                + f"; max/mean {hist['max'] / hist['mean']:.2f}")
+            print(f"  [{mode}] walk per tile: {cs.format_histogram(cs.walk_histogram(args))}")
             info = bwd.kernel_info(want_dist)
             print(f"  [{mode}] {info}")
             if not want_dist:
@@ -130,8 +139,8 @@ def main():
             # In turns: parent and variants beside the default, both ways round.
             timed = {"default": lambda: whole_call(args, want_dist)}
             if parent is not None:
-                grade(f"[{mode}] parent B2", parent_call(parent, args, want_dist), ref)
-                timed["parent"] = lambda: parent_call(parent, args, want_dist)
+                grade(f"[{mode}] parent B2", parent_call(parent, rows, args, want_dist), ref)
+                timed["parent"] = lambda: parent_call(parent, rows, args, want_dist)
             for name, lib in variants.items():
                 cuda_build._loaded["rasterize_bwd"] = lib
                 grade(f"[{mode}] variant {name}", whole_call(args, want_dist), ref)

@@ -1,6 +1,7 @@
 """The port stands alone: importing g4splat_torch (every submodule) or
 chip_smoke.py pulls in no JAX and nothing of g4splat_tpu, and no source file
-of the port imports either. chip_smoke.py refuses to run without a card."""
+of the port, nor the kernel timing scripts (scripts/time_b*.py), imports
+either. chip_smoke.py refuses to run without a card."""
 
 import os
 import re
@@ -43,7 +44,8 @@ def test_import_pulls_in_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*(REPO / "g4splat_torch").rglob("*.py"),
-                                       REPO / "chip_smoke.py"]))
+                                       REPO / "chip_smoke.py",
+                                       *(REPO / "scripts").glob("time_b*.py")]))
 def test_source_imports_no_jax(path):
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M)
     assert not pat.search((REPO / path).read_text()), path

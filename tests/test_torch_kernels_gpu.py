@@ -64,14 +64,14 @@ def entry_table(cuda):
     prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw,
                       scene.opacity(), scene.features(), 0, config=RenderConfig())
     b = bin_splats(prep, cam.width, cam.height)
-    return b, rasterize_cuda.pack_entries(prep, b.gauss_id), cam
+    return b, rasterize_cuda.splat_table(prep), cam
 
 
 @pytest.mark.parametrize("want_aux,want_dist", [(False, True), (True, False), (True, True)])
 def test_kernel_matches_plain(entry_table, want_aux, want_dist):
-    b, entries, cam = entry_table
-    bg = torch.tensor([0.05, 0.1, 0.15], device=entries.device)
-    args = (entries, b.tile_start, b.tile_count, bg, cam.width, cam.height)
+    b, table, cam = entry_table
+    bg = torch.tensor([0.05, 0.1, 0.15], device=table.device)
+    args = (table, b.gauss_id, b.tile_start, b.tile_count, bg, cam.width, cam.height)
     before = rasterize_cuda.RASTERIZE_FWD.launches
     got = rasterize_cuda.rasterize_entries(*args, want_aux=want_aux, want_dist=want_dist)
     assert rasterize_cuda.RASTERIZE_FWD.launches == before + 1
@@ -93,20 +93,38 @@ def test_kernel_matches_plain(entry_table, want_aux, want_dist):
         assert not got["distortion"].any() and not got["m1_tot"].any()
 
 
+@pytest.mark.parametrize("want_aux,want_dist", [(False, True), (True, False), (True, True)])
+def test_kernel_reads_rows_through_gauss_id(entry_table, want_aux, want_dist):
+    """B1 reading entry i as table row gauss_id[i] is bitwise equal to B1 on
+    the rows gathered beforehand with identity ids: same rows, same
+    arithmetic."""
+    b, table, cam = entry_table
+    bg = torch.tensor([0.05, 0.1, 0.15], device=table.device)
+    rows = table[b.gauss_id.long()].contiguous()
+    ids = torch.arange(rows.shape[0], dtype=torch.int32, device=table.device)
+    geom = (b.tile_start, b.tile_count, bg, cam.width, cam.height)
+    got = rasterize_cuda.rasterize_entries(table, b.gauss_id, *geom, want_aux=want_aux,
+                                           want_dist=want_dist)
+    ref = rasterize_cuda.rasterize_entries(rows, ids, *geom, want_aux=want_aux,
+                                           want_dist=want_dist)
+    torch.cuda.synchronize()
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
 @pytest.mark.parametrize("want_dist", [False, True])
 def test_backward_kernel_matches_plain(entry_table, want_dist):
-    b, entries, cam = entry_table
-    dev = entries.device
+    b, table, cam = entry_table
+    dev = table.device
     W, H = cam.width, cam.height
     bg = torch.tensor([0.05, 0.1, 0.15], device=dev)
-    maps = rasterize_cuda.rasterize_entries(entries, b.tile_start, b.tile_count, bg, W, H,
-                                            want_aux=True, want_dist=want_dist)
+    maps = rasterize_cuda.rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count,
+                                            bg, W, H, want_aux=True, want_dist=want_dist)
     aux = torch.stack([maps["final_T"], maps["n_contrib"].float(), maps["m1_tot"],
                        maps["m2_tot"]], -1)
     cot = torch.from_numpy(np.random.RandomState(2).randn(H, W, 12).astype(np.float32))
     cot[..., 10:] = 0.0
-    args = (entries, b.gauss_id, b.tile_start, b.tile_count, aux, cot.to(dev), bg, W, H,
-            int(b.gauss_id.max()) + 1)
+    args = (table, b.gauss_id, b.tile_start, b.tile_count, aux, cot.to(dev), bg, W, H)
     before = rasterize_cuda_bwd.RASTERIZE_BWD.launches
     got = rasterize_cuda_bwd.rasterize_backward(*args, want_dist=want_dist)
     assert rasterize_cuda_bwd.RASTERIZE_BWD.launches == before + 1
@@ -133,27 +151,28 @@ def deep_table(cuda):
     prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw,
                       scene.opacity(), scene.features(), 0, config=RenderConfig())
     b = bin_splats(prep, cam.width, cam.height)
-    entries = rasterize_cuda.pack_entries(prep, b.gauss_id)
+    table = rasterize_cuda.splat_table(prep)
     bg = torch.tensor([0.05, 0.1, 0.15], device=cuda)
     out = {}
     for want_dist in (False, True):
-        maps = rasterize_cuda.rasterize_entries(entries, b.tile_start, b.tile_count, bg,
-                                                cam.width, cam.height, want_aux=True,
+        maps = rasterize_cuda.rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count,
+                                                bg, cam.width, cam.height, want_aux=True,
                                                 want_dist=want_dist)
         aux = torch.stack([maps["final_T"], maps["n_contrib"].float(), maps["m1_tot"],
                            maps["m2_tot"]], -1)
         cot = torch.from_numpy(np.random.RandomState(4).randn(cam.height, cam.width, 12)
                                .astype(np.float32)).to(cuda)
         cot[..., 10:] = 0.0
-        out[want_dist] = (entries, b.gauss_id, b.tile_start, b.tile_count, aux, cot, bg,
-                          cam.width, cam.height, int(b.gauss_id.max()) + 1)
+        out[want_dist] = (table, b.gauss_id, b.tile_start, b.tile_count, aux, cot, bg,
+                          cam.width, cam.height)
     return out
 
 
 @pytest.mark.parametrize("want_dist", [False, True])
 def test_backward_deep_scene_matches_plain(deep_table, want_dist):
     """B2 on a deep scene, whose tiles walk several hundred entries in
-    batches of 32 on a persistent grid with more tiles than blocks."""
+    batches of 32 on a persistent grid with more tiles than blocks, reading
+    each entry's row from the splat table through gauss_id."""
     args = deep_table[want_dist]
     walk = rasterize_cuda_bwd.tile_walks(args[4], args[3], args[7], args[8])
     assert int(walk.max()) > 256
@@ -173,9 +192,9 @@ def test_backward_worklist_matches_plain(deep_table, want_dist):
     varies with the atomics)."""
     args = deep_table[want_dist]
     n_tiles = args[3].numel()
-    grad = torch.zeros((args[9], rasterize_cuda_bwd.GRAD_F), device=args[0].device)
+    grad = torch.zeros((args[0].shape[0], rasterize_cuda_bwd.GRAD_F), device=args[0].device)
     work = rasterize_cuda_bwd.worklist(
-        rasterize_cuda_bwd.launch_backward(args[:9], grad, want_dist=want_dist), n_tiles)
+        rasterize_cuda_bwd.launch_backward(args, grad, want_dist=want_dist), n_tiles)
     walk = rasterize_cuda_bwd.tile_walks(args[4], args[3], args[7], args[8])
     ref = rasterize_cuda_bwd.tile_order_plain(walk)
     assert torch.equal(work["walk"].long(), walk)
@@ -225,10 +244,14 @@ def test_cuda_backend_gradients_match_tiled(cuda, dist):
 
 
 def test_kernel_rejects_mixed_devices(entry_table):
-    b, entries, cam = entry_table
+    b, table, cam = entry_table
     with pytest.raises(ValueError, match="different devices"):
-        rasterize_cuda.rasterize_entries(entries, b.tile_start, b.tile_count,
+        rasterize_cuda.rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count,
                                          torch.zeros(3), cam.width, cam.height)
+    with pytest.raises(ValueError, match="gauss_id"):
+        rasterize_cuda.rasterize_entries(table, b.gauss_id.cpu(), b.tile_start, b.tile_count,
+                                         torch.zeros(3, device=table.device), cam.width,
+                                         cam.height)
 
 
 # B3 against chunked_attention: max|kernel - plain| <= 1e-4 * max|plain| (fp32

@@ -184,12 +184,12 @@ class TestRender:
         prep = prep_pair(c)[0]
         b = ttiled.bin_splats(prep, 64, 48)
         assert int(b.tile_count.max()) > 256
-        entries = tcuda.pack_entries(prep, b.gauss_id)
+        table = tcuda.splat_table(prep)
         bg = torch.tensor(BG)
-        maps = tcuda.rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg,
-                                             64, 48, want_aux=need_aux, want_dist=dist)
-        small = tcuda.rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg,
-                                              64, 48, want_aux=need_aux, want_dist=dist,
+        maps = tcuda.rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                             bg, 64, 48, want_aux=need_aux, want_dist=dist)
+        small = tcuda.rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                              bg, 64, 48, want_aux=need_aux, want_dist=dist,
                                               chunk=32, max_elems=1 << 16)
         pairs = {"color": "render", "normal": "rend_normal_cam", "alpha": "rend_alpha",
                  "median_depth": "depth_median", "final_T": "final_T"}
@@ -206,6 +206,27 @@ class TestRender:
             np.testing.assert_array_equal(np_(maps["n_contrib"]), ref["n_contrib"])
         assert (np_(maps["n_walked"]) >= np_(maps["n_contrib"])).all()
         np.testing.assert_array_equal(np_(small["n_walked"]), np_(maps["n_walked"]))
+
+    @pytest.mark.parametrize("mode", list(MODES))
+    def test_plain_reads_table_through_gauss_id(self, deep_case, mode):
+        """Entry i is row gauss_id[i] of the splat table: the plain version
+        on (table, gauss_id) equals it on the gathered rows table[gauss_id]
+        with identity ids, exactly, in every map and in n_walked."""
+        need_aux, dist = MODES[mode]
+        prep = prep_pair(deep_case)[0]
+        b = ttiled.bin_splats(prep, 64, 48)
+        table = tcuda.splat_table(prep)
+        assert table.shape == (prep.T.shape[0], tcommon.ENTRY_F) and table.is_contiguous()
+        rows = table[b.gauss_id.long()]
+        ids = torch.arange(rows.shape[0], dtype=torch.int32)
+        bg = torch.tensor(BG)
+        got = tcuda.rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                            bg, 64, 48, want_aux=need_aux, want_dist=dist)
+        ref = tcuda.rasterize_entries_plain(rows, ids, b.tile_start, b.tile_count, bg, 64,
+                                            48, want_aux=need_aux, want_dist=dist)
+        assert got.keys() == ref.keys()
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
 
     def test_deep_overlap_render(self, deep_case):
         c = deep_case
@@ -297,11 +318,12 @@ class TestDevices:
 
     def test_kernel_wrapper_checks_inputs(self):
         e = torch.zeros((4, 16))
+        gid = torch.zeros(5, dtype=torch.int32)
         ts = torch.zeros(12, dtype=torch.int32)
         with pytest.raises(ValueError, match="tile_start"):
-            tcuda.rasterize_entries(e, ts.long(), ts, torch.zeros(3), 64, 48)
-        with pytest.raises(ValueError, match="entries"):
-            tcuda.rasterize_entries(e[:, :8], ts, ts, torch.zeros(3), 64, 48)
+            tcuda.rasterize_entries(e, gid, ts.long(), ts, torch.zeros(3), 64, 48)
+        with pytest.raises(ValueError, match="table"):
+            tcuda.rasterize_entries(e[:, :8], gid, ts, ts, torch.zeros(3), 64, 48)
 
 
 @pytest.mark.slow

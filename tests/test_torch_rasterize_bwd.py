@@ -62,11 +62,16 @@ def deep():
 
 
 def entry_problem(case):
+    """The kernels' inputs: preprocess, the binning and the splat table."""
     s = case.ts
     prep = tcommon.preprocess(case.tc, s.xyz, s.scaling(), s.rotation_raw, s.opacity(),
                               s.features(), 1)
     b = ttiled.bin_splats(prep, case.tc.width, case.tc.height)
-    return prep, b, tcuda.pack_entries(prep, b.gauss_id)
+    return prep, b, tcuda.splat_table(prep)
+
+
+def identity(n):
+    return torch.arange(n, dtype=torch.int32)
 
 
 def cotangents(maps, seed):
@@ -93,13 +98,13 @@ def test_plain_backward_matches_autograd(deep, want_dist):
     differentiates T through the centre the forward recomputes from it, so
     the plain version's d_center is chained through `conic_center` before
     dT is compared."""
-    prep, b, entries = entry_problem(deep)
+    prep, b, table = entry_problem(deep)
     assert int(b.tile_count.max()) > 256
     W, H = deep.tc.width, deep.tc.height
     bg = torch.tensor(BG)
-    e = entries.clone().requires_grad_(True)
-    maps = tcuda.rasterize_entries_plain(e, b.tile_start, b.tile_count, bg, W, H,
-                                         want_dist=want_dist)
+    e = table[b.gauss_id.long()].requires_grad_(True)      # one row per entry
+    maps = tcuda.rasterize_entries_plain(e, identity(e.shape[0]), b.tile_start,
+                                         b.tile_count, bg, W, H, want_dist=want_dist)
     cot = cotangents(maps, 5)
     loss = sum((maps[k] * cot[k]).sum() for k in COT_MAPS)
     (de,) = torch.autograd.grad(loss, e)
@@ -107,8 +112,8 @@ def test_plain_backward_matches_autograd(deep, want_dist):
     gid = b.gauss_id.long()
     ad = torch.zeros(P, 16).index_add_(0, gid, de)
 
-    got = tbwd.rasterize_backward_plain(entries, b.gauss_id, b.tile_start, b.tile_count,
-                                        aux_image(maps), cot_image(cot), bg, W, H, P,
+    got = tbwd.rasterize_backward_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                        aux_image(maps), cot_image(cot), bg, W, H,
                                         want_dist=want_dist)
     T = prep.T.detach().clone().requires_grad_(True)
     center, _, ok = tcommon.conic_center(T)
@@ -128,16 +133,17 @@ def test_plain_backward_groups_match_autograd(deep, want_dist, monkeypatch):
     """Every gradient group on its own, d_center included: autograd of B1's
     plain version with the recomputed centre made an independent input (as
     the kernels treat it, and as TestManualGeomVJP checks the TPU kernel)."""
-    prep, b, entries = entry_problem(deep)
+    prep, b, table = entry_problem(deep)
     W, H = deep.tc.width, deep.tc.height
     bg = torch.tensor(BG)
+    entries = table[b.gauss_id.long()]                      # one row per entry
     E = entries.shape[0]
     center, f, ok = tcommon.conic_center(entries[:, :9].reshape(E, 3, 3))
     center = center.detach().requires_grad_(True)
     monkeypatch.setattr(tcuda, "conic_center", lambda T: (center, f, ok))
     e = entries.clone().requires_grad_(True)
-    maps = tcuda.rasterize_entries_plain(e, b.tile_start, b.tile_count, bg, W, H,
-                                         want_dist=want_dist)
+    maps = tcuda.rasterize_entries_plain(e, identity(E), b.tile_start, b.tile_count, bg,
+                                         W, H, want_dist=want_dist)
     cot = cotangents(maps, 9)
     loss = sum((maps[k] * cot[k]).sum() for k in COT_MAPS)
     de, dc = torch.autograd.grad(loss, (e, center))
@@ -145,8 +151,8 @@ def test_plain_backward_groups_match_autograd(deep, want_dist, monkeypatch):
     ad = torch.zeros(P, 18).index_add_(
         0, b.gauss_id.long(),
         torch.cat([de[:, :9], dc, de[:, 9:10], de[:, 10:13], de[:, 13:16]], 1))
-    got = tbwd.rasterize_backward_plain(entries, b.gauss_id, b.tile_start, b.tile_count,
-                                        aux_image(maps), cot_image(cot), bg, W, H, P,
+    got = tbwd.rasterize_backward_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                        aux_image(maps), cot_image(cot), bg, W, H,
                                         want_dist=want_dist)
     for name, sl in GROUPS.items():
         assert float(ad[:, sl].norm()) > 0, name
@@ -154,13 +160,14 @@ def test_plain_backward_groups_match_autograd(deep, want_dist, monkeypatch):
 
 
 def test_plain_backward_independent_of_chunking(deep):
-    prep, b, entries = entry_problem(deep)
+    prep, b, table = entry_problem(deep)
     W, H = deep.tc.width, deep.tc.height
     bg = torch.tensor(BG)
     with torch.no_grad():
-        maps = tcuda.rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg, W, H)
-    args = (entries, b.gauss_id, b.tile_start, b.tile_count, aux_image(maps),
-            cot_image(cotangents(maps, 6)), bg, W, H, prep.T.shape[0])
+        maps = tcuda.rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                             bg, W, H)
+    args = (table, b.gauss_id, b.tile_start, b.tile_count, aux_image(maps),
+            cot_image(cotangents(maps, 6)), bg, W, H)
     stats = {}
     ref = tbwd.rasterize_backward_plain(*args, stats=stats)
     small = tbwd.rasterize_backward_plain(*args, chunk=16, max_elems=1 << 13)
@@ -169,18 +176,18 @@ def test_plain_backward_independent_of_chunking(deep):
     assert stats["pairs"] == int(maps["n_contrib"].sum())
     assert 0 < stats["contributors"] <= stats["pairs"]
     assert 0 < stats["splats"] <= prep.T.shape[0]
-    assert stats["rows"] <= entries.shape[0]
+    assert stats["rows"] <= b.gauss_id.numel()
 
 
 def backward_args(case, want_dist, seed=6):
-    prep, b, entries = entry_problem(case)
+    prep, b, table = entry_problem(case)
     W, H = case.tc.width, case.tc.height
     bg = torch.tensor(BG)
     with torch.no_grad():
-        maps = tcuda.rasterize_entries_plain(entries, b.tile_start, b.tile_count, bg, W, H,
-                                             want_dist=want_dist)
-    return (entries, b.gauss_id, b.tile_start, b.tile_count, aux_image(maps),
-            cot_image(cotangents(maps, seed)), bg, W, H, prep.T.shape[0])
+        maps = tcuda.rasterize_entries_plain(table, b.gauss_id, b.tile_start, b.tile_count,
+                                             bg, W, H, want_dist=want_dist)
+    return (table, b.gauss_id, b.tile_start, b.tile_count, aux_image(maps),
+            cot_image(cotangents(maps, seed)), bg, W, H)
 
 
 @pytest.fixture(scope="module")
@@ -201,10 +208,10 @@ def reach_box_pairs(args, margin):
     """Walked (entry, pixel) pairs against the entries' reach boxes, over the
     plain version's own intersections: contributing pairs outside their
     box, contributing pairs, and pairs the boxes leave out."""
-    entries, gid, tile_start, tile_count, aux, cot, bg, W, H, _ = args
-    box = tbwd.reach_boxes(entries, margin=margin)
+    table, gid, tile_start, tile_count, aux, cot, bg, W, H = args
+    box = tbwd.reach_boxes(table, margin=margin)
     gx, aux_t, cot_t, walk, ent, order, bg = tbwd._plain_setup(
-        entries, gid, tile_start, tile_count, aux, cot, bg, W, H, tcommon.NEAR_N,
+        table, gid, tile_start, tile_count, aux, cot, bg, W, H, tcommon.NEAR_N,
         tcommon.FAR_N)
     n = dict(outside=0, contributing=0, left_out=0)
     for b0 in range(0, order.numel(), 32):
@@ -235,6 +242,105 @@ def test_reach_boxes_hold_every_contributor(request, scene):
     assert n["contributing"] > 0
     assert n["outside"] == 0, n
     assert n["left_out"] > 0
+
+
+@pytest.mark.parametrize("scene", ["deep", "spread", "closeup", "wide"])
+def test_forward_skip_outside_reach_boxes_keeps_maps(request, scene, monkeypatch):
+    """B1's warps skip an entry whose reach box misses their pixels. Its
+    plain walk with every (entry, pixel) pair outside the entry's box (no
+    margin: stricter than the kernel's warp-wide test with one pixel of
+    margin) forced to alpha 0 gives the same maps, n_contrib and n_walked,
+    exactly: every pair forced was already below 1/255, so the arithmetic is
+    unchanged. The boxes do leave pairs out."""
+    case = request.getfixturevalue(scene)
+    prep, b, table = entry_problem(case)
+    W, H = case.tc.width, case.tc.height
+    n = dict(forced=0, left_out=0)
+
+    def boxed(T, center, opacity, valid, px, py, near=tcommon.NEAR_N):
+        alpha, z = tcommon.alpha_depth(T, center, opacity, valid, px, py, near)
+        rows = torch.cat([T.reshape(-1, 9), opacity.reshape(-1, 1),
+                          torch.zeros(opacity.numel(), 6)], 1)
+        box = tbwd.reach_boxes(rows, margin=0.0).reshape(*opacity.shape, 4)
+        x, y = px[..., None, :].double(), py[..., None, :].double()
+        inside = ((x >= box[..., 0:1]) & (x <= box[..., 1:2]) & (y >= box[..., 2:3])
+                  & (y <= box[..., 3:4]))
+        n["forced"] += int(((alpha > 0) & ~inside).sum())
+        n["left_out"] += int((valid[..., None] & ~inside).sum())
+        return torch.where(inside, alpha, 0.0), z
+
+    args = (table, b.gauss_id, b.tile_start, b.tile_count, torch.tensor(BG), W, H)
+    ref = tcuda.rasterize_entries_plain(*args)
+    monkeypatch.setattr(tcuda, "alpha_depth", boxed)
+    got = tcuda.rasterize_entries_plain(*args)
+    assert n["forced"] == 0 and n["left_out"] > 0, n
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("want_dist", [False, True])
+def test_plain_backward_reads_table_through_gauss_id(deep, want_dist):
+    """B2's plain version reads entry i as table row gauss_id[i] and adds its
+    gradients there: the same table with its rows permuted (ids mapped
+    along) gives the same gradients permuted, and a table rebuilt from the
+    gathered rows (table[gauss_id] = rows, as a caller holding per-entry rows
+    does) the same gradients, exactly."""
+    args = backward_args(deep, want_dist)
+    table, gid = args[0], args[1].long()
+    ref = tbwd.rasterize_backward_plain(*args, want_dist=want_dist)
+    assert ref.shape == (table.shape[0], 18) and ref.abs().sum() > 0
+    perm = torch.from_numpy(np.random.RandomState(3).permutation(table.shape[0]))
+    moved = torch.empty_like(table)
+    moved[perm] = table
+    got = tbwd.rasterize_backward_plain(moved, perm[gid].to(torch.int32), *args[2:],
+                                        want_dist=want_dist)
+    assert torch.equal(got[perm], ref)
+    rebuilt = torch.zeros_like(table)
+    rebuilt[gid] = table[gid]
+    got = tbwd.rasterize_backward_plain(rebuilt, *args[1:], want_dist=want_dist)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+def test_wrappers_refuse_bad_gauss_id(deep, kernel, bad):
+    """Both wrappers refuse a gauss_id that is not (E,) int32 on the table's
+    device, before any launch."""
+    prep, b, table = entry_problem(deep)
+    W, H = deep.tc.width, deep.tc.height
+    gid = {"dtype": b.gauss_id.long(), "shape": b.gauss_id[:, None],
+           "device": b.gauss_id.to("meta")}[bad]
+    with pytest.raises(ValueError, match="gauss_id"):
+        if kernel == "forward":
+            tcuda.rasterize_entries(table, gid, b.tile_start, b.tile_count, torch.zeros(3),
+                                    W, H)
+        else:
+            tbwd.rasterize_backward(table, gid, b.tile_start, b.tile_count,
+                                    torch.zeros(H, W, 4), torch.zeros(H, W, 12),
+                                    torch.zeros(3), W, H)
+
+
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_plain_versions_raise_on_gauss_id_out_of_range(deep, kernel):
+    """The wrappers leave 0 <= gauss_id < P to the caller (checking it would
+    take a host sync, and the kernels read row gauss_id[i] unchecked); the
+    plain versions raise on an id past the table."""
+    prep, b, table = entry_problem(deep)
+    W, H = deep.tc.width, deep.tc.height
+    gid = b.gauss_id.clone()
+    first = int(b.tile_start[int(torch.nonzero(b.tile_count)[0])])
+    gid[first] = table.shape[0]
+    with pytest.raises(IndexError):
+        if kernel == "forward":
+            tcuda.rasterize_entries(table, gid, b.tile_start, b.tile_count, torch.zeros(3),
+                                    W, H)
+        else:
+            maps = tcuda.rasterize_entries(table, b.gauss_id, b.tile_start, b.tile_count,
+                                           torch.zeros(3), W, H)
+            aux = torch.stack([maps["final_T"], maps["n_contrib"].to(torch.float32),
+                               maps["m1_tot"], maps["m2_tot"]], -1)
+            tbwd.rasterize_backward(table, gid, b.tile_start, b.tile_count, aux,
+                                    torch.ones(H, W, 12), torch.zeros(3), W, H)
 
 
 def slanted_surfel(theta, center=(450.0, 330.0), depth=3.0, f=480.0, s=0.05,
@@ -402,21 +508,22 @@ def test_kernel_binding_matches_source(monkeypatch):
 
 
 def test_backward_wrapper_checks_inputs(deep):
-    prep, b, entries = entry_problem(deep)
+    prep, b, table = entry_problem(deep)
     W, H = deep.tc.width, deep.tc.height
     aux = torch.zeros(H, W, 4)
     cot = torch.zeros(H, W, 12)
     bg = torch.zeros(3)
     with pytest.raises(ValueError, match="cot"):
-        tbwd.rasterize_backward(entries, b.gauss_id, b.tile_start, b.tile_count, aux,
-                                cot[..., :10], bg, W, H, 10)
+        tbwd.rasterize_backward(table, b.gauss_id, b.tile_start, b.tile_count, aux,
+                                cot[..., :10], bg, W, H)
     with pytest.raises(ValueError, match="gauss_id"):
-        tbwd.rasterize_backward(entries, b.gauss_id.long(), b.tile_start, b.tile_count,
-                                aux, cot, bg, W, H, 10)
-    # Zero cotangents give zero gradients, one launch of the plain version.
-    g = tbwd.rasterize_backward(entries, b.gauss_id, b.tile_start, b.tile_count, aux,
-                                cot, bg, W, H, 10)
-    assert g.shape == (10, 18) and not g.any()
+        tbwd.rasterize_backward(table, b.gauss_id.long(), b.tile_start, b.tile_count,
+                                aux, cot, bg, W, H)
+    # Zero cotangents give zero gradients, one row per table row, one launch
+    # of the plain version.
+    g = tbwd.rasterize_backward(table, b.gauss_id, b.tile_start, b.tile_count, aux,
+                                cot, bg, W, H)
+    assert g.shape == (table.shape[0], 18) and not g.any()
 
 
 def port_grads(case, backend, dist, weights):
