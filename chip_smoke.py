@@ -70,10 +70,33 @@ Phases (any failure exits non-zero and prints no result line):
  12. See3D timings: the stage's split (CLIP, VAE encode, UNet call, DDIM
      loop, VAE decode) by CUDA events; the DDIM loop's latents with B3 and
      with plain attention agree; peak memory.
+ 13. render_all and eval on phase 8's trained scene: render_camera_batch over
+     its 5 views at 512x384 through B1 (exactly 5 launches) writing PNGs
+     that read back equal to the uint8 renders; PSNR/SSIM/LPIPS (random-init
+     VGG16) finite against the training images; LPIPS on the card vs on the
+     CPU with the same params within LPIPS_REL; evaluate() with the last two
+     views held out gives and writes the JAX package's keys (7 launches);
+ 14. the mesh main path at production settings: box_room(9000 per m²),
+     room_cameras(8, 512, 384), PRODUCTION_MESH_CONFIG (downsample 0.5,
+     2 x 10 interpolated views: 168 cameras, 8 binary steps, texture on);
+     B1 launches exactly 2 x 168 times; B1 vs its plain version on an input
+     and an interpolated camera; the first-pass TSDF at every tetra point
+     from B1's maps of the 8 input views vs the plain version's (TSDF_TOL,
+     FLIP_FRAC); the mesh finite with colours in [0, 1]; keep_largest_clusters,
+     then a PLY round trip; against the GT mesh culled to the input views,
+     Comp < CHAMFER_CM and recall > RECALL_MIN, Acc and Chamfer-L1 within
+     ADAPTIVE_BAND of ADAPTIVE_REF; the multires extraction at 128^3 (8 launches)
+     non-empty and finite, Chamfer-L1 < CHAMFER_CM;
+ 15. mesh timings: every stage of the adaptive extraction (tetra points,
+     Delaunay, both render_all_views, the first TSDF pass, each binary step,
+     marching, colours) and of the multires levels; the TSDF's point-views
+     per second beside its bound; the host stages' share of the wall time;
+     peak device memory.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -170,6 +193,46 @@ SEE3D_MODELS = dict(unet={}, vae={}, clip_vision={}, clip_text={})
 # latents ||d|| / ||plain|| and images max|d|.
 SEE3D_LAT_TOL = 1e-3
 SEE3D_IMG_TOL = 2e-3
+
+# Phase 13: the held-out views of evaluate() (the last two training views),
+# and LPIPS on the card vs on the CPU with the same params (TF32 off).
+LPIPS_REL = 1e-4
+EVAL_KEYS = ["LPIPS-uncalibrated", "test_views_num", "Average-PSNR", "Average-SSIM",
+             "Average-LPIPS", "PSNR", "SSIM", "LPIPS"]
+# Phase 14: box_room's splat density (its default, 9000 per m² over 28.8 m²)
+# and room_cameras(8, 512, 384), the training resolution; the multires
+# extraction's lattice (PipelineConfig.tsdf_resolution).
+MESH_DENSITY = 9000
+MESH_VIEWS = (8, 512, 384)
+MULTIRES_RESOLUTION = 128
+# The first-pass TSDF from B1's maps against the plain version's: |d| <=
+# TSDF_TOL at all but FLIP_FRAC of the tetra points (the rest sit on a pixel
+# whose median or alpha crossing flipped).
+TSDF_TOL = 1e-3
+# The adaptive mesh against the GT mesh culled to the input views (cm): its
+# completeness by evaluate_mesh's own threshold (Comp < CHAMFER_CM, recall at
+# 5 cm > RECALL_MIN %), its accuracy by Acc and Chamfer-L1 within ADAPTIVE_BAND
+# (relative) of the reading the extraction gives on this scene, ADAPTIVE_REF
+# (an H100, deterministic from run to run). Those sit above 5 cm: the
+# adaptive TSDF counts space no view observes as inside (-1, as the JAX
+# package and the reference do), so marching puts surfaces in mid-air where
+# observed free space meets unobserved space, and the JAX package reads the
+# same as the port on a reduced room (tests/test_torch_mesh_room.py). Faults
+# planted by scripts/mesh_faults.py (CPU, 3000 per m² at 256x192; sound Acc
+# 11.66, Chamfer-L1 6.23) leave the band on both sides: the TSDF's sign
+# flipped at 1 % of the points reads 16.48 / 8.64, views observing half their
+# image 13.00 / 19.52, a binary search that keeps the wrong half pulls the
+# vertices onto the tetra points, 3.95 / 2.38. The multires mesh drops faces
+# at unobserved points: Chamfer-L1 < CHAMFER_CM.
+CHAMFER_CM = 5.0
+RECALL_MIN = 90.0
+ADAPTIVE_REF = {"Acc": 11.62, "Chamfer-L1": 6.19}
+ADAPTIVE_BAND = 0.1
+# fp32 operations of one (point, view) step of ops/tsdf.integrate_views in the
+# production options: projection 21, rounding and clamps 6, validity 11,
+# bilinear depth 22, difference and truncation 7, weight and running mean 9,
+# bilinear colour 33, colour mean 18.
+TSDF_OPS_PER_POINT_VIEW = 127
 
 failures = []
 max_abs_err = 0.0
@@ -1146,6 +1209,245 @@ def see3d_split(priors, refs, warps, masks, n_ref, reps=3):
     return ms, lat, lat_p
 
 
+def tsdf_bound(n_points, n_views, w, h):
+    """Least time for one TSDF pass (integrate_views over n_points x
+    n_views): the points, the views' colour and depth maps read once and the
+    tsdf, colours and weights written once, against TSDF_OPS_PER_POINT_VIEW
+    fp32 operations per (point, view). Returns (ms, 'bytes' | 'operations')."""
+    nbytes = n_points * 12 + n_views * w * h * 16 + n_points * 20
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_points * n_views * TSDF_OPS_PER_POINT_VIEW / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def plain_b1():
+    """B1's plain version in place of its kernel under rasterize_entries:
+    render() and everything over it run as they are, only the composite
+    differs, and no launch is counted."""
+    from g4splat_torch.ops import rasterize_cuda
+
+    def plain(*args):
+        maps = rasterize_cuda.rasterize_entries_plain(*args)
+        maps.pop("n_walked")
+        return maps
+
+    kernel = rasterize_cuda._rasterize_entries_cuda
+    rasterize_cuda._rasterize_entries_cuda = plain
+    try:
+        yield
+    finally:
+        rasterize_cuda._rasterize_entries_cuda = kernel
+
+
+def render_all_phase(scene, cams, images):
+    """Phase 13: render_camera_batch over the training views with PNGs, the
+    image metrics, LPIPS card vs CPU, and evaluate()'s results dict. Returns
+    B1's launches on these paths."""
+    import tempfile
+
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at, stack_cameras
+    from g4splat_torch.eval.image_metrics import LPIPS, evaluate_images
+    from g4splat_torch.io.images import read_png, to_uint8
+    from g4splat_torch.ops import rasterize_cuda
+    from g4splat_torch.pipeline.evaluate import evaluate
+    from g4splat_torch.pipeline.render_all import render_camera_batch
+
+    n = cams.w2c.shape[0]
+    fwd = rasterize_cuda.RASTERIZE_FWD
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        fwd.launches = 0
+        t0 = time.perf_counter()
+        renders = render_camera_batch(scene, cams, out_dir=os.path.join(tmp, "renders"))
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        batch_launches = fwd.launches
+        check(batch_launches == n, f"render_camera_batch launched B1 {batch_launches} times "
+              f"({n} views)")
+        same = all(np.array_equal(read_png(os.path.join(tmp, "renders", f"{v:05d}.png")),
+                                  to_uint8(renders[v])) for v in range(n))
+        check(same and renders.shape == (n, cams.height, cams.width, 3),
+              f"{n} PNGs read back equal to the uint8 renders")
+        lp = LPIPS(device=DEVICE)
+        m = evaluate_images(renders, images, lpips_model=lp)
+        check(all(np.isfinite(v) for v in m.values()),
+              "PSNR / SSIM / LPIPS finite against the training images: " + ", ".join(
+                  f"{k} {v:.5f}" for k, v in m.items()))
+        card = lp(renders[0], images[0])
+        host_params = {"conv": [{k: t.cpu() for k, t in c.items()} for c in lp.params["conv"]],
+                       "lin": [t.cpu() for t in lp.params["lin"]]}
+        host = LPIPS(host_params, calibrated=False, device="cpu")(renders[0].cpu(),
+                                                                   images[0].cpu())
+        check(abs(card - host) <= LPIPS_REL * abs(host),
+              f"LPIPS on the card {card:.7f} vs the CPU {host:.7f} (same params, TF32 off): "
+              f"relative {abs(card - host) / abs(host):.2e} <= {LPIPS_REL}")
+        test = list(range(n - 2, n))
+        torch.cuda.synchronize()
+        fwd.launches = 0
+        t0 = time.perf_counter()
+        res = evaluate(scene, cams, gt_images=images,
+                       test_cameras=stack_cameras([camera_at(cams, v) for v in test]),
+                       test_images=images[test], lpips_model=lp,
+                       out_dir=os.path.join(tmp, "eval"), iteration=35)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_launches = fwd.launches
+        written = os.path.join(tmp, "eval", "result_iter_35.json")
+        check(list(res) == EVAL_KEYS and res["LPIPS-uncalibrated"] is True
+              and os.path.exists(written) and list(json.load(open(written))) == EVAL_KEYS,
+              f"evaluate() gives and writes the JAX package's keys {list(res)}")
+        check(eval_launches == n + len(test), f"evaluate() launched B1 {eval_launches} times "
+              f"({n} views + {len(test)} held out)")
+    print(f"  results: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    print(f"  render_camera_batch {batch_ms:.1f} ms for {n} views with PNGs; evaluate() "
+          f"{eval_ms:.1f} ms (host clock, synchronized)")
+    return batch_launches + eval_launches
+
+
+def mesh_phase():
+    """Phase 14: the adaptive-tetra extraction at production settings on the
+    box room through B1, its gates (launches, B1 vs plain, TSDF from B1's
+    maps vs the plain version's, the mesh, PLY, Chamfer), then the multires
+    extraction. Returns what phase 15 prints."""
+    import tempfile
+
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at, interpolate_cameras
+    from g4splat_torch.eval.mesh_metrics import evaluate_mesh
+    from g4splat_torch.eval.synthetic import box_room, cull_mesh_to_views, room_cameras
+    from g4splat_torch.io.ply import load_mesh_ply, save_mesh_ply
+    from g4splat_torch.ops import rasterize_cuda
+    from g4splat_torch.ops.tsdf import integrate_views_chunked
+    from g4splat_torch.pipeline import mesh_extraction as me
+
+    n_views, w, h = MESH_VIEWS
+    cfg = me.PRODUCTION_MESH_CONFIG
+    fwd = rasterize_cuda.RASTERIZE_FWD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene, (gt_v, gt_f) = box_room(MESH_DENSITY, device=DEVICE)
+    cams = room_cameras(n_views, w, h, device=DEVICE)
+    n_cams = n_views * (1 + cfg.interp_neighbors * cfg.interp_per_neighbor)
+    print(f"  box_room({MESH_DENSITY}): {scene.capacity} splats; {n_views} cameras at {w}x{h}, "
+          f"{n_cams} with the interpolated ones; config {cfg}")
+    timings = {}
+    torch.cuda.synchronize()
+    fwd.launches = 0
+    t0 = time.perf_counter()
+    mesh = me.extract_mesh_adaptive_tsdf(scene, cams, cfg, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == 2 * n_cams, f"extract_mesh_adaptive_tsdf launched B1 {launches} times "
+          f"(2 x {n_cams} renders)")
+    print(f"  extraction {wall:.2f} s; {len(mesh.vertices)} vertices, {len(mesh.faces)} faces")
+
+    interp = interpolate_cameras(cams, cfg.interp_neighbors, cfg.interp_per_neighbor)
+    with torch.no_grad():
+        for tag, cam in (("input camera 0", camera_at(cams, 0)),
+                         ("interpolated camera 3", camera_at(interp, 3))):
+            b, table = kernel_inputs(cam, scene)
+            kernel_vs_plain(f"mesh {tag}", b, table, w, h, modes=("nodist",), quiet=True)
+        del b, table
+    extent = me.cameras_spatial_extent(cams)
+    tcfg = me.tsdf_config(cfg, extent)
+    pts, _ = scene.tetra_points(cfg.downsample_ratio, cfg.gaussian_flatness * extent, seed=0)
+    views = me.render_all_views(scene, cams, cfg.depth_ratio)
+    with plain_b1():
+        pviews = me.render_all_views(scene, cams, cfg.depth_ratio)
+    a = integrate_views_chunked(pts, cams, views.rgbs, views.depths, tcfg, chunk=cfg.point_chunk)
+    p = integrate_views_chunked(pts, cams, pviews.rgbs, pviews.depths, tcfg,
+                                chunk=cfg.point_chunk)
+    d = (a.tsdf - p.tsdf).abs()
+    off = float((d > TSDF_TOL).to(torch.float32).mean())
+    check(off < FLIP_FRAC, f"first-pass TSDF at {len(pts)} tetra points from B1's maps of the "
+          f"{n_views} input views vs the plain version's: |d| > {TSDF_TOL} at {off:.1e} of "
+          f"points (< {FLIP_FRAC}); max|d| {float(d.max()):.2e}, on the rest "
+          f"{float(torch.where(d > TSDF_TOL, 0.0, d).max()):.2e}; observed "
+          f"{float((a.weights > 0).to(torch.float32).mean()):.3f}")
+    del pviews, a, p, d
+
+    c = mesh.vertex_colors
+    check(len(mesh.faces) > 0 and np.isfinite(mesh.vertices).all() and c is not None
+          and np.isfinite(c).all() and c.min() >= 0 and c.max() <= 1,
+          "the mesh is non-empty and finite, its colours in [0, 1]")
+    kept = me.keep_largest_clusters(mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tetra_mesh_binary_search_7_iter_35.ply")
+        save_mesh_ply(path, kept.vertices, kept.faces, kept.vertex_colors)
+        v, f, col = load_mesh_ply(path)
+    check(np.array_equal(v, kept.vertices) and np.array_equal(f, kept.faces)
+          and np.array_equal(col, (np.clip(kept.vertex_colors, 0, 1) * 255).astype(np.uint8)),
+          f"keep_largest_clusters ({len(kept.faces)} of {len(mesh.faces)} faces), then "
+          f"save_mesh_ply / load_mesh_ply round-trip exactly")
+    depths = views.depths.cpu().numpy()
+    depths[depths <= 0] = 3.2
+    gt = cull_mesh_to_views(gt_v, gt_f, cams, depths)
+    metrics = evaluate_mesh(mesh.vertices, mesh.faces, *gt)
+    print(f"  GT mesh culled to the input views: {len(gt[0])} of {len(gt_v)} vertices")
+    print("  adaptive mesh vs GT: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    check(metrics["Comp"] < CHAMFER_CM and metrics["Recal"] > RECALL_MIN,
+          f"adaptive mesh covers the GT: Comp {metrics['Comp']:.3f} cm < {CHAMFER_CM}, recall "
+          f"{metrics['Recal']:.2f} % > {RECALL_MIN}")
+    check(all(abs(metrics[k] - ref) <= ADAPTIVE_BAND * ref for k, ref in ADAPTIVE_REF.items()),
+          "adaptive mesh accuracy at this scene's reading: " + ", ".join(
+              f"{k} {metrics[k]:.3f} cm within {ADAPTIVE_BAND:.0%} of {ref}"
+              for k, ref in ADAPTIVE_REF.items()))
+    del views
+
+    mr_timings = {}
+    torch.cuda.synchronize()
+    fwd.launches = 0
+    t0 = time.perf_counter()
+    mr = me.keep_largest_clusters(me.extract_mesh_multires_tsdf(
+        scene, cams, resolution=MULTIRES_RESOLUTION, timings=mr_timings), cluster_to_keep=50)
+    torch.cuda.synchronize()
+    mr_wall = time.perf_counter() - t0
+    mr_launches = fwd.launches
+    check(mr_launches == n_views, f"the multires extraction launched B1 {mr_launches} times "
+          f"({n_views} views)")
+    check(len(mr.faces) > 0 and np.isfinite(mr.vertices).all(),
+          f"multires mesh at {MULTIRES_RESOLUTION}^3 non-empty and finite ({len(mr.faces)} faces)")
+    mr_metrics = evaluate_mesh(mr.vertices, mr.faces, *gt)
+    print(f"  multires {MULTIRES_RESOLUTION}^3 (after keep_largest_clusters) vs GT: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in mr_metrics.items()))
+    check(mr_metrics["Chamfer-L1"] < CHAMFER_CM,
+          f"multires mesh Chamfer-L1 {mr_metrics['Chamfer-L1']:.3f} cm < {CHAMFER_CM}")
+    return dict(timings=timings, wall=wall, launches=launches + mr_launches, peak=peak,
+                n_points=len(pts), n_cams=n_cams, w=w, h=h, mr_timings=mr_timings,
+                mr_wall=mr_wall, edges=len(mesh.vertices))
+
+
+def print_mesh_timings(r):
+    """Phase 15: the extraction's stages, the TSDF pass beside its bound, the
+    host share and peak memory."""
+    t = r["timings"]
+    print("  adaptive stages s (host clock, synchronized): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+          + f"; sum {sum(t.values()):.3f}, wall {r['wall']:.3f}")
+    pv = r["n_points"] * r["n_cams"]
+    bound, by = tsdf_bound(r["n_points"], r["n_cams"], r["w"], r["h"])
+    print(f"  first TSDF pass: {r['n_points']} points x {r['n_cams']} views = {pv} point-views "
+          f"in {t['tsdf']:.3f} s, {pv / t['tsdf']:.3e} per s; bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / 1e3 / t['tsdf']:.3f} % of it")
+    steps = [v for k, v in t.items() if k.startswith("binary_step_")]
+    ev = r["edges"] * r["n_cams"]
+    print(f"  binary steps: {r['edges']} crossing edges x {r['n_cams']} views = {ev} "
+          f"point-views each, median {np.median(steps):.3f} s, bound "
+          f"{tsdf_bound(r['edges'], r['n_cams'], r['w'], r['h'])[0]:.4f} ms")
+    host = sum(t[k] for k in ("tetra_points", "delaunay", "marching"))
+    print(f"  host stages (tetra points, Delaunay, marching) {host:.3f} s = "
+          f"{100 * host / r['wall']:.1f} % of the extraction's wall time")
+    print(f"  peak device memory over the extraction {r['peak']:.2f} GiB")
+    print("  multires stages s: " + ", ".join(f"{k} {v:.3f}" for k, v in r["mr_timings"].items())
+          + f"; wall {r['mr_wall']:.3f}")
+
+
 def main():
     import torch
 
@@ -1463,6 +1765,7 @@ def main():
     print("== phase 10: B3 (attention) vs its plain version (chunked_attention); "
           f"tolerance max|kernel - plain| <= {B3_TOL} * max|plain|, and at ±30 logits "
           f"max|kernel - ref64| <= max({B3_TOL} * max|ref64|, {B3_TOL64} * max|plain - ref64|)")
+    scene8, images8 = trainer.scene, views8.image
     del trainer, views8, b8, t8, runs8
     torch.cuda.empty_cache()
     from g4splat_torch.ops import attention_cuda
@@ -1537,13 +1840,32 @@ def main():
     print("  split ms (CUDA events): " + "; ".join(f"{k} {v:.1f}" for k, v in split12.items()))
     print(f"  stage total {stage_ms:.1f} ms; peak memory over the split "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del priors, refs, warps, masks, outs11, outs11p, lat_k, lat_p, gen_k, gen_p
+    torch.cuda.empty_cache()
+
+    print(f"== phase 13: render_all and eval on phase 8's trained scene "
+          f"({int(scene8.num_alive)} live splats in {scene8.capacity} slots, SH "
+          f"{scene8.active_sh_degree}), {cams8.w2c.shape[0]} views at {w8}x{h8}")
+    launches13 = render_all_phase(scene8, cams8, images8)
+    del scene8, images8
+    torch.cuda.empty_cache()
+
+    print(f"== phase 14: mesh main path at production settings (box room, "
+          f"{MESH_DENSITY} splats per m²)")
+    t0 = time.perf_counter()
+    mesh14 = mesh_phase()
+    print(f"  phase 14 {time.perf_counter() - t0:.1f} s")
+
+    print("== phase 15: mesh timings")
+    print_mesh_timings(mesh14)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ")
         return 1
     # B1: one launch of the render main path = its two modes at frame 0,
-    # averaged; its launches are the render path's plus the training path's.
+    # averaged; its launches are those of the render, training, render_all /
+    # eval and mesh paths.
     main_ms = float(np.mean([rows4[m][0] for m in ("infer", "nodist")]))
     main_plain = float(np.mean([rows4[m][1] for m in ("infer", "nodist")]))
     fwd, bwd = rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD
@@ -1555,7 +1877,8 @@ def main():
     a_ms, a_plain, a_lib, a_bound, a_by = rows10[B3_SHAPES[0]]
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
-         "launches": launches + launches8[0], "max_abs_err": max_abs_err, "ms": main_ms,
+         "launches": launches + launches8[0] + launches13 + mesh14["launches"],
+         "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
          "launches": launches8[1], "max_abs_err": max_abs_err_bwd, "ms": k_ms,

@@ -7,7 +7,8 @@ numpy arrays.
 (through ``np.asarray``), and `train_config_from` / `views_from` do the same
 for `TrainConfig` and `ViewData`, so the port never imports the JAX package.
 
-`flax_state_dict` turns the flax params of the JAX package's prior networks
+`lpips_params_from` turns the JAX package's LPIPS params (HWIO
+convolutions) into the port's (OIHW). `flax_state_dict` turns the flax params of the JAX package's prior networks
 (`MultiViewUNet`, `AutoencoderKL`, `CLIPVision`, `CLIPText`) into the state
 dicts of the port's modules of the same names.
 """
@@ -53,8 +54,7 @@ def scene_from_arrays(xyz, f_dc, f_rest, opacity_raw, scaling_raw, rotation_raw,
 def camera_from_arrays(w2c, fx, fy, cx, cy, width: int, height: int,
                        znear: float = 0.01, zfar: float = 100.0,
                        device: DeviceLike = None) -> Camera:
-    return make_camera(np.array(w2c, np.float32), np.float32(fx), np.float32(fy),
-                       np.float32(cx), np.float32(cy), width, height,
+    return make_camera(*(np.array(x, np.float32) for x in (w2c, fx, fy, cx, cy)), width, height,
                        znear=znear, zfar=zfar, device=device)
 
 
@@ -120,3 +120,17 @@ def flax_state_dict(params) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def lpips_params_from(params, device: DeviceLike = None) -> Dict:
+    """The JAX package's LPIPS params ({"conv": [{"w": (3, 3, I, O), "b"}],
+    "lin": [(C,)] * 5}) → the port's (`eval.image_metrics`): convolutions
+    (O, I, 3, 3), biases and the five heads copied."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+
+    return {"conv": [{"w": f32(np.asarray(c["w"]).transpose(3, 2, 0, 1)), "b": f32(c["b"])}
+                     for c in params["conv"]],
+            "lin": [f32(w) for w in params["lin"]]}

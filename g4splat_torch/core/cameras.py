@@ -135,6 +135,18 @@ class Camera:
         origin, dirs = self.pixel_rays()
         return origin + depth[..., None] * dirs
 
+    def project(self, pts_world: torch.Tensor, eps: float = 1e-8):
+        """(…, 3) world points → pixel coords (…, 2) and view depth (…,)."""
+        return project_points(self.world2pix, pts_world, eps)
+
+
+def project_points(world2pix: torch.Tensor, pts_world: torch.Tensor, eps: float = 1e-8):
+    """`Camera.project` through a precomputed (3, 4) world→pixel matrix:
+    pixel coords (…, 2) = (x·w, y·w) / (w + eps) and view depth w (…,)."""
+    ph = pts_world @ world2pix[:, :3].T + world2pix[:, 3]
+    z = ph[..., 2]
+    return ph[..., :2] / (z[..., None] + eps), z
+
 
 def make_camera(
     w2c,
@@ -167,6 +179,61 @@ def stack_cameras(cams) -> Camera:
         k: torch.stack([getattr(c, k) for c in cams])
         for k in ("w2c", "fx", "fy", "cx", "cy")
     })
+
+
+def camera_at(cameras: Camera, v: int) -> Camera:
+    """The v-th camera of a batched Camera."""
+    return cameras.replace(**{k: getattr(cameras, k)[v]
+                              for k in ("w2c", "fx", "fy", "cx", "cy")})
+
+
+def interpolate_cameras(cameras: Camera, n_neighbors: int = 2,
+                        n_per_neighbor: int = 10) -> Camera:
+    """Cameras between each camera and its nearest neighbours by centre
+    (the reference's interpolated TSDF views; configs/
+    adaptive_tetrahedralization: 2 neighbours, 10 cameras each): rotation
+    slerp through quaternions, linear centre and intrinsics. Host numpy,
+    as in the JAX package; the result lies on the cameras' device."""
+    import numpy as np
+
+    from g4splat_torch.core.transforms import quat_to_rotmat, rotmat_to_quat
+
+    V = cameras.w2c.shape[0]
+    centers = cameras.center.detach().cpu().numpy()
+    fx, fy, cx, cy = (getattr(cameras, k).detach().cpu().numpy()
+                      for k in ("fx", "fy", "cx", "cy"))
+    quats = rotmat_to_quat(cameras.w2c[:, :3, :3].detach().cpu()).numpy()
+
+    def slerp(q0, q1, t):
+        d = float(np.dot(q0, q1))
+        if d < 0:
+            q1, d = -q1, -d
+        if d > 0.9995:
+            q = q0 + t * (q1 - q0)
+            return q / np.linalg.norm(q)
+        th = np.arccos(np.clip(d, -1, 1))
+        return (np.sin((1 - t) * th) * q0 + np.sin(t * th) * q1) / np.sin(th)
+
+    out = []
+    for i in range(V):
+        d = np.linalg.norm(centers - centers[i], axis=1)
+        d[i] = np.inf
+        for j in np.argsort(d)[: min(n_neighbors, V - 1)]:
+            j = int(j)
+            for k in range(1, n_per_neighbor + 1):
+                t = k / (n_per_neighbor + 1)
+                q = slerp(quats[i], quats[j], t)
+                R = quat_to_rotmat(torch.as_tensor(q, dtype=torch.float32)).numpy()
+                c = (1 - t) * centers[i] + t * centers[j]
+                m = np.eye(4, dtype=np.float32)
+                m[:3, :3] = R
+                m[:3, 3] = -R @ c
+                out.append(make_camera(
+                    m, (1 - t) * fx[i] + t * fx[j], (1 - t) * fy[i] + t * fy[j],
+                    (1 - t) * cx[i] + t * cx[j], (1 - t) * cy[i] + t * cy[j],
+                    cameras.width, cameras.height, znear=cameras.znear,
+                    zfar=cameras.zfar, device=cameras.device))
+    return stack_cameras(out)
 
 
 def lookat_camera(eye, target, up, fx, fy, width, height,

@@ -30,3 +30,31 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return rot.reshape(q.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(…, 3, 3) rotation matrix → (…, 4) wxyz unit quaternion with w >= 0.
+
+    Branch-free Shepperd extraction: all four candidate quaternions, the one
+    whose dominant component is largest kept (ties to the first, as JAX's
+    argmax)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw2 = torch.clamp(1 + m00 + m11 + m22, min=0.0)
+    qx2 = torch.clamp(1 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1 - m00 - m11 + m22, min=0.0)
+    cand = torch.stack(
+        [
+            torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+        ],
+        dim=-2,
+    )                                                   # (…, 4 candidates, 4)
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 4)))
+    q = normalize(q.squeeze(-2))
+    return torch.where(q[..., :1] < 0, -q, q)

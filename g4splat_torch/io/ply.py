@@ -3,14 +3,15 @@
 Round-trips the reference's on-disk Gaussian schema
 (2d-gaussian-splatting/scene/gaussian_model.py:276-316: x y z, nx ny nz,
 f_dc_*, f_rest_*, opacity, scale_*, rot_*, optional mip_filter — float32
-little-endian). Files written here and by the JAX package are interchangeable;
-the two differ only in the header's comment line.
+little-endian), point clouds and triangle meshes (`save_mesh_ply`). Files
+written here and by the JAX package are interchangeable; the two differ only
+in the header's comment line.
 """
 
 from __future__ import annotations
 
 import io as _io
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +28,10 @@ _NP_TO_PLY = {v: k for k, v in list(_PLY_TO_NP.items())[:8]}
 
 
 def read_ply(path: str) -> Dict[str, np.ndarray]:
-    """Read a binary PLY → {element_name: structured array}. Properties are
-    scalars (the Gaussian and point-cloud schemas); list properties and ascii
-    files are refused."""
+    """Read a binary PLY → {element_name: structured array}. A list property
+    (a mesh's `vertex_indices`) comes back as an (M, L) array under its
+    element's name; lists must all have the first row's length. Ascii files
+    and variable-length lists are refused."""
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.find(b"end_header\n") + len(b"end_header\n")
@@ -37,7 +39,7 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
     body = data[header_end:]
 
     fmt = "binary_little_endian"
-    elements = []  # [name, count, [(prop, dtype)]]
+    elements = []  # [name, count, [(prop, dtype)], (count dtype, index dtype) or None]
     for line in header:
         parts = line.strip().split()
         if not parts:
@@ -45,28 +47,43 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
         if parts[0] == "format":
             fmt = parts[1]
         elif parts[0] == "element":
-            elements.append([parts[1], int(parts[2]), []])
+            elements.append([parts[1], int(parts[2]), [], None])
         elif parts[0] == "property":
             if parts[1] == "list":
-                raise ValueError(f"{path}: PLY list properties are not supported")
-            elements[-1][2].append((parts[2], _PLY_TO_NP[parts[1]]))
+                elements[-1][3] = (_PLY_TO_NP[parts[2]], _PLY_TO_NP[parts[3]])
+            else:
+                elements[-1][2].append((parts[2], _PLY_TO_NP[parts[1]]))
     if fmt not in ("binary_little_endian", "binary_big_endian"):
         raise ValueError(f"{path}: PLY format {fmt!r} is not supported")
 
     endian = "<" if "little" in fmt else ">"
     out: Dict[str, np.ndarray] = {}
     off = 0
-    for name, count, props in elements:
-        dt = np.dtype([(p, endian + t) for p, t in props])
-        out[name] = np.frombuffer(body, dt, count=count, offset=off)
-        off += dt.itemsize * count
+    for name, count, props, list_prop in elements:
+        if list_prop is None:
+            dt = np.dtype([(p, endian + t) for p, t in props])
+            out[name] = np.frombuffer(body, dt, count=count, offset=off)
+            off += dt.itemsize * count
+            continue
+        if props:
+            raise ValueError(f"{path}: element {name!r} mixes list and scalar properties")
+        cnt_t = np.dtype(endian + list_prop[0])
+        length = int(np.frombuffer(body, cnt_t, count=1, offset=off)[0]) if count else 0
+        row_dt = np.dtype([("n", cnt_t), ("v", endian + list_prop[1], (length,))])
+        rows = np.frombuffer(body, row_dt, count=count, offset=off)
+        if (rows["n"] != length).any():
+            raise ValueError(f"{path}: variable-length PLY list properties are not supported")
+        out[name] = rows["v"].copy()
+        off += row_dt.itemsize * count
     return out
 
 
 def write_ply(path: str, vertex_fields: Dict[str, np.ndarray],
+              faces: Optional[np.ndarray] = None,
               comment: str = "generated by g4splat_torch"):
     """Write a binary little-endian PLY. `vertex_fields` maps property name →
-    (N,) array (order preserved)."""
+    (N,) array (order preserved); `faces`, an (F, L) index array, becomes a
+    `face` element of `vertex_indices` lists (uchar count, int indices)."""
     names = list(vertex_fields)
     n = len(vertex_fields[names[0]])
     cols = []
@@ -85,14 +102,49 @@ def write_ply(path: str, vertex_fields: Dict[str, np.ndarray],
         t = v.dtype.str.lstrip("<>|=")
         buf.write(f"property {_NP_TO_PLY.get(t, 'float')} {k}\n".encode())
         dt_fields.append((k, "<" + t))
+    if faces is not None:
+        faces = np.asarray(faces, np.int32)
+        buf.write(f"element face {len(faces)}\n".encode())
+        buf.write(b"property list uchar int vertex_indices\n")
     buf.write(b"end_header\n")
 
     rec = np.zeros(n, np.dtype(dt_fields))
     for k, v in zip(names, cols):
         rec[k] = v
     buf.write(rec.tobytes())
+    if faces is not None:
+        frec = np.zeros(len(faces), np.dtype([("n", "u1"), ("v", "<i4", (faces.shape[1],))]))
+        frec["n"] = faces.shape[1]
+        frec["v"] = faces
+        buf.write(frec.tobytes())
     with open(path, "wb") as f:
         f.write(buf.getvalue())
+
+
+def save_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
+                  vertex_colors: Optional[np.ndarray] = None) -> None:
+    """A triangle mesh as binary PLY: float32 x y z, uchar red green blue
+    (float colours: clip to [0, 1], × 255, truncated to uint8, as the JAX
+    package writes them), int faces."""
+    v = np.asarray(vertices, np.float32)
+    fields = {"x": v[:, 0], "y": v[:, 1], "z": v[:, 2]}
+    if vertex_colors is not None:
+        c = np.asarray(vertex_colors)
+        if c.dtype != np.uint8:
+            c = (np.clip(c, 0, 1) * 255).astype(np.uint8)
+        fields.update({"red": c[:, 0], "green": c[:, 1], "blue": c[:, 2]})
+    write_ply(path, fields, faces=np.asarray(faces, np.int32))
+
+
+def load_mesh_ply(path: str) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """(vertices (V, 3) float32, faces (F, 3) or None, uint8 colours or None)."""
+    d = read_ply(path)
+    v = d["vertex"]
+    verts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    colors = None
+    if v.dtype.names and "red" in v.dtype.names:
+        colors = np.stack([v["red"], v["green"], v["blue"]], axis=1)
+    return verts, d.get("face"), colors
 
 
 # --------------------------------------------------------------- Gaussians IO

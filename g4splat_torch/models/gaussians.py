@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from g4splat_torch.core import sh as sh_lib
+from g4splat_torch.core.transforms import quat_to_rotmat
 from g4splat_torch.device import DeviceLike, resolve_device
 
 _TENSOR_FIELDS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw",
@@ -79,6 +80,10 @@ class GaussianScene:
             det2 = torch.prod(s2 + self.mip_filter * self.mip_filter, dim=1)
             o = o * torch.sqrt(det1 / torch.clamp(det2, min=1e-30))[..., None]
         return o * self.alive[..., None]
+
+    def rotmats(self) -> torch.Tensor:
+        """(N, 3, 3); columns 0, 1 are the tangent axes, column 2 the normal."""
+        return quat_to_rotmat(self.rotation_raw)
 
     def features(self) -> torch.Tensor:
         """(N, K, 3) concatenated SH coefficients."""
@@ -189,3 +194,36 @@ class GaussianScene:
         return scene.replace(xyz=xyz, f_dc=f_dc, scaling_raw=scaling_raw,
                              rotation_raw=rotation_raw, opacity_raw=opacity_raw,
                              alive=alive)
+
+    # ------------------------------------------------------------------- mesh
+    def tetra_points(self, downsample_ratio: float = 1.0,
+                     flatness: float = 2e-4, seed: int = 0):
+        """Candidate tetrahedralization vertices on the host (numpy): 8 box
+        corners + centre per (optionally subsampled) live surfel, the flat
+        axis padded to `flatness` (gaussian_model.py:318-382). Rows with a
+        non-finite position, scale or rotation are dropped first (they would
+        abort Qhull). Returns (points (9n, 3), per-point scale (9n,))."""
+        with torch.no_grad():
+            xyz = self.xyz.cpu().numpy()
+            alive = self.alive.cpu().numpy()
+            R = self.rotmats().cpu().numpy()
+            s2 = self.scaling().cpu().numpy()
+        xyz, R, s2 = xyz[alive], R[alive], s2[alive]
+        finite = (np.isfinite(xyz).all(1) & np.isfinite(s2).all(1)
+                  & np.isfinite(R).all((1, 2)))
+        if not finite.all():
+            xyz, R, s2 = xyz[finite], R[finite], s2[finite]
+        n = xyz.shape[0]
+        if downsample_ratio < 1.0 and n > 0:
+            rng = np.random.default_rng(seed)
+            keep = rng.choice(n, max(1, int(n * downsample_ratio)), replace=False)
+            xyz, R, s2 = xyz[keep], R[keep], s2[keep]
+            n = xyz.shape[0]
+        s3 = np.concatenate([s2, np.full((n, 1), flatness, np.float32)], axis=1)
+        corners = np.array(
+            [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+            np.float32)
+        offs = np.einsum("nij,cj,nj->nci", R, corners, s3)
+        pts = np.concatenate([(xyz[:, None, :] + offs).reshape(-1, 3), xyz], axis=0)
+        scale = np.max(s3, axis=1)
+        return pts, np.concatenate([np.repeat(scale, 8), scale], axis=0)

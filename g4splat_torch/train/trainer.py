@@ -27,7 +27,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from g4splat_torch.core.cameras import Camera
+from g4splat_torch.core.cameras import Camera, camera_at
 from g4splat_torch.device import fp32_math
 from g4splat_torch.models.gaussians import GaussianScene
 from g4splat_torch.ops.rasterize import render
@@ -296,12 +296,6 @@ def zero_moments_at(optimizer: torch.optim.Adam, changed: torch.Tensor,
             x = state.get(key)
             if x is not None and x.shape[0] == changed.shape[0]:
                 x[changed] = 0.0
-
-
-def camera_at(cameras: Camera, v: int) -> Camera:
-    """The v-th camera of a batched Camera."""
-    return cameras.replace(**{k: getattr(cameras, k)[v]
-                              for k in ("w2c", "fx", "fy", "cx", "cy")})
 
 
 class Trainer:

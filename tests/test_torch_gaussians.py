@@ -140,5 +140,12 @@ class TestPLY:
         got, ref = (mod.read_ply(str(tmp_path / "p.ply"))["vertex"] for mod in (tply, jply))
         assert got.dtype == ref.dtype and got.tobytes() == ref.tobytes()
         jply.save_mesh_ply(str(tmp_path / "m.ply"), pts, np.array([[0, 1, 2]], np.int32))
+        np.testing.assert_array_equal(tply.read_ply(str(tmp_path / "m.ply"))["face"],
+                                      [[0, 1, 2]])
+        # A face list of varying length (a triangle, then a quad) is refused.
+        data = (tmp_path / "m.ply").read_bytes().replace(b"element face 1", b"element face 2")
+        quad = np.zeros(1, np.dtype([("n", "u1"), ("v", "<i4", (4,))]))
+        quad["n"], quad["v"] = 4, [0, 1, 2, 3]
+        (tmp_path / "q.ply").write_bytes(data + quad.tobytes())
         with pytest.raises(ValueError, match="list properties"):
-            tply.read_ply(str(tmp_path / "m.ply"))
+            tply.read_ply(str(tmp_path / "q.ply"))

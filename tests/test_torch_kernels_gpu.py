@@ -371,3 +371,83 @@ def test_see3d_stage_runs_b3_on_the_card_and_refuses_host_priors(cuda):
     assert (attention_cuda.ATTENTION_FWD.launches - before
             == 2 * see3d.TINY_UNET.n_transformer_blocks() * calls)
     assert all(o.device.type == "cuda" and bool(torch.isfinite(o).all()) for o in outs)
+
+
+def sphere_on(device, n=600, seed=0):
+    rng = np.random.RandomState(seed)
+    d = rng.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return GaussianScene.from_points((0.5 * d).astype(np.float32), rng.rand(n, 3),
+                                     scales=np.full(n, 0.08, np.float32),
+                                     quats=rng.randn(n, 4), initial_opacity=0.95, device=device)
+
+
+def ring_on(device, k=4, w=64, h=48):
+    from g4splat_torch.core.cameras import stack_cameras
+
+    return stack_cameras([lookat_camera([2.5 * np.cos(a), 0.2, 2.5 * np.sin(a)], [0, 0, 0],
+                                        [0, -1, 0], fx=60.0, fy=60.0, width=w, height=h,
+                                        device=device)
+                          for a in np.arange(k) * 2 * np.pi / k])
+
+
+def maps_agree(got, ref):
+    """Each map's pixels within MAP_TOL·max|ref| (ABS_FLOOR), all but FLIP_FRAC."""
+    for g, r in zip(got, ref):
+        d = (g - r).abs()
+        d = d.amax(-1) if d.ndim == 4 else d
+        tol = max(MAP_TOL * float(r.abs().max()), ABS_FLOOR)
+        assert float((d > tol).float().mean()) < FLIP_FRAC
+
+
+def test_render_all_views_cuda_matches_tiled(cuda):
+    """The mesh path's renders: one B1 launch per view, maps as the tiled
+    backend's; and the TSDF from either set of maps agrees."""
+    from g4splat_torch.ops.tsdf import TSDFConfig, integrate_views_chunked
+    from g4splat_torch.pipeline.mesh_extraction import render_all_views
+
+    scene, cams = sphere_on(cuda), ring_on(cuda)
+    before = rasterize_cuda.RASTERIZE_FWD.launches
+    got = render_all_views(scene, cams, 1.0, backend="cuda")
+    assert rasterize_cuda.RASTERIZE_FWD.launches == before + 4
+    ref = render_all_views(scene, cams, 1.0, backend="tiled")
+    maps_agree(got, ref)
+    pts, _ = scene.tetra_points(flatness=1e-3)
+    cfg = TSDFConfig(trunc_margin=0.02)
+    a = integrate_views_chunked(pts, cams, got.rgbs, got.depths, cfg, chunk=1000).tsdf
+    b = integrate_views_chunked(pts, cams, ref.rgbs, ref.depths, cfg, chunk=1000).tsdf
+    assert float(((a - b).abs() > 1e-3).float().mean()) < FLIP_FRAC
+
+
+def test_tsdf_on_the_card_matches_cpu(cuda):
+    from g4splat_torch.ops.tsdf import TSDFConfig, integrate_views
+
+    rng = np.random.RandomState(1)
+    cams = ring_on(cuda, k=3, w=32, h=24)
+    depths = torch.from_numpy(2.0 + 0.1 * rng.rand(3, 24, 32).astype(np.float32))
+    images = torch.from_numpy(rng.rand(3, 24, 32, 3).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-0.6, 0.6, (4096, 3)).astype(np.float32))
+    for kw in ({}, dict(use_binary_opacity=True), dict(weight_by_softmax=True)):
+        cfg = TSDFConfig(trunc_margin=0.2, **kw)
+        card = integrate_views(pts.to(cuda), cams, images.to(cuda), depths.to(cuda), cfg)
+        host = integrate_views(pts, cams.to("cpu"), images, depths, cfg)
+        assert card.tsdf.device.type == "cuda"
+        for x, y in zip(card, host):
+            torch.testing.assert_close(x.cpu(), y, atol=1e-5, rtol=1e-5)
+
+
+def test_mesh_extraction_runs_b1_on_the_card(cuda):
+    from g4splat_torch.pipeline.mesh_extraction import (
+        MeshExtractionConfig,
+        extract_mesh_adaptive_tsdf,
+    )
+
+    scene, cams = sphere_on(cuda), ring_on(cuda)
+    cfg = MeshExtractionConfig(downsample_ratio=0.5, n_binary_steps=4, point_chunk=16384,
+                               use_interpolated_views=True, interp_neighbors=1,
+                               interp_per_neighbor=2)
+    before = rasterize_cuda.RASTERIZE_FWD.launches
+    mesh = extract_mesh_adaptive_tsdf(scene, cams, cfg)
+    assert rasterize_cuda.RASTERIZE_FWD.launches == before + 2 * (4 + 4 * 2)
+    assert len(mesh.faces) > 100 and np.isfinite(mesh.vertices).all()
+    assert (mesh.vertex_colors >= 0).all() and (mesh.vertex_colors <= 1).all()
