@@ -1,7 +1,7 @@
-"""Drive the g4splat_torch render, training and See3D inpainting paths on
-one NVIDIA GPU and hold their CUDA kernels (B1 forward rasterizer, B2
-backward rasterizer, B3 attention) against the kernels' plain PyTorch
-versions.
+"""Drive the g4splat_torch render, training, See3D inpainting, output and
+See3D-loop paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
+rasterizer, B2 backward rasterizer, B3 attention) against the kernels'
+plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -92,6 +92,25 @@ Phases (any failure exits non-zero and prints no result line):
      marching, colours) and of the multires levels; the TSDF's point-views
      per second beside its bound; the host stages' share of the wall time;
      peak device memory.
+ 16. one See3D loop through G4SplatPipeline (run()'s order without SfM,
+     charts, mesh and eval): box_room(MESH_DENSITY) rendered by B1 from
+     inward_cameras(8, 512, 384) as the inputs and the stand-in chart depths;
+     PipelineConfig() save LOOP_ITERATIONS steps per train_gaussians and 5
+     DDIM timesteps; full-width See3D priors and DepthAnything("vitl") on
+     seeded random weights; render_chart_views, excavate_planes,
+     refine_plane_depths, train_gaussians, then per stage see3d_stage(k),
+     refine_plane_depths(k == 3), train_gaussians. Gates: (i) stage 1's
+     candidate sweep again with B1's plain version gives every none-visible
+     rate within RATE_TOL and the same selection; (ii) DA2 on one inpainted
+     view, card vs the same module on the CPU, within DA2_REL * max|CPU|;
+     (iii) lifted depths equal the rendered depth inside each visible mask
+     bit for bit, finite and > 0; (iv) the views grow by the selected count,
+     the anchor ids are that range, see3d_cameras.npz's n_views is the sum;
+     (v) each stage directory holds the files by name; (vi) after each
+     train_gaussians no non-finite live splat and finite losses; (vii) B3
+     launches 32 per UNet call per stage, B2 one per training step. Prints
+     each method's host seconds and launches, per stage the candidates,
+     selected and views, DA2 ms per call, launches and peak memory.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
@@ -228,6 +247,19 @@ CHAMFER_CM = 5.0
 RECALL_MIN = 90.0
 ADAPTIVE_REF = {"Acc": 11.62, "Chamfer-L1": 6.19}
 ADAPTIVE_BAND = 0.1
+# Phase 16: one See3D loop (run()'s order without SfM, charts, mesh and eval)
+# on box_room(MESH_DENSITY) from inward_cameras(8, 512, 384): room_cameras'
+# eyes sit at the open front, outside the space the views observe, where the
+# stage-1 orbit proposes nothing. PipelineConfig() defaults save
+# LOOP_ITERATIONS steps per train_gaussians (phase 8's cut) and phase 11's
+# 5 DDIM timesteps; full-width See3D priors and DepthAnything("vitl").
+LOOP_VIEWS = (8, 512, 384)
+LOOP_ITERATIONS = 35
+LOOP_DA2 = "vitl"
+# Gate (i): stage 1's none-visible rates from B1's sweep vs its plain version's.
+RATE_TOL = 1e-4
+# Gate (ii): DA2 on the card vs the same module on the CPU, one inpainted view.
+DA2_REL = 1e-3
 # fp32 operations of one (point, view) step of ops/tsdf.integrate_views in the
 # production options: projection 21, rounding and clamps 6, validity 11,
 # bilinear depth 22, difference and truncation 7, weight and running mean 9,
@@ -1070,7 +1102,7 @@ def see3d_priors(seed, n_steps):
     Returns (Priors, layers re-drawn)."""
     import torch
 
-    from g4splat_torch.pipeline.see3d_stage import Priors
+    from g4splat_torch.pipeline.orchestrator import Priors
     from g4splat_torch.priors.clip_text import CLIPText, CLIPTextEmbedder
     from g4splat_torch.priors.clip_vision import CLIPImageEmbedder, CLIPVision
     from g4splat_torch.priors.see3d import DDIMConfig, MultiViewUNet, See3DPipeline, UNetConfig
@@ -1421,6 +1453,272 @@ def mesh_phase():
     return dict(timings=timings, wall=wall, launches=launches + mr_launches, peak=peak,
                 n_points=len(pts), n_cams=n_cams, w=w, h=h, mr_timings=mr_timings,
                 mr_wall=mr_wall, edges=len(mesh.vertices))
+
+
+def stage_files(stage, n_train, n_cand, n_sel):
+    """The files see3d_stage(stage) writes under its stage directory (the
+    CPU test holds the same names against the JAX package's), without the
+    optional invisible_points.ply."""
+    names = {f"stage{stage}_need_inpaint_views_points.ply"}
+    for i in range(n_train):
+        names |= {f"render-train-views/{i:05d}.png", f"render-train-views/depth_{i:05d}.tiff"}
+    for i in range(n_cand):
+        names |= {f"raw-gs/ori_warp_frame{i:06d}.png", f"raw-gs/depth_frame{i:06d}.tiff",
+                  f"raw-gs/alpha_{i:06d}.npy", f"raw-gs/alpha_mask_frame{i:06d}.png",
+                  f"raw-gs/mask_frame{i:06d}.png", f"raw-gs/warp_frame{i:06d}.png"}
+    for k in range(n_sel):
+        names |= {f"select-gs/warp_frame{k:06d}.png", f"select-gs/mask_frame{k:06d}.png",
+                  f"select-gs/depth_frame{k:06d}.tiff",
+                  f"select-gs-inpainted/predict_warp_frame{k:06d}.png"}
+    return names
+
+
+def see3d_loop_phase():
+    """Phase 16: one See3D loop through G4SplatPipeline on the card, with
+    gates (i)-(vii). Returns what the summary prints."""
+    import tempfile
+
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.eval.synthetic import box_room, inward_cameras
+    from g4splat_torch.ops import attention_cuda
+    from g4splat_torch.ops import rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.ops.rasterize_common import RenderConfig
+    from g4splat_torch.pipeline import orchestrator as orch
+    from g4splat_torch.pipeline.novel_views import none_visible_rate_from_alpha
+    from g4splat_torch.priors.depth_anything import DepthAnything
+    from g4splat_torch.train.trainer import Trainer
+
+    n_views, w, h = LOOP_VIEWS
+    fwd, bwd = rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD
+    att = attention_cuda.ATTENTION_FWD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    scene, _ = box_room(MESH_DENSITY, device=DEVICE)
+    cams = inward_cameras(n_views, w, h, device=DEVICE)
+    with torch.no_grad():
+        outs = [render(camera_at(cams, v), scene, config=RenderConfig(depth_ratio=0.5),
+                       backend="cuda") for v in range(n_views)]
+    images = torch.stack([o["render"].clamp(0, 1) for o in outs])
+    # Where a view sees past the room's open sides the render's depth is 0.
+    # Such pixels have no chart point and no init faces (ROADMAP C12); the
+    # loop runs on these depths as they are.
+    depths = torch.stack([o["surf_depth"] for o in outs])
+    empty = (depths <= 0).flatten(1).float().mean(1)
+    print(f"  box_room({MESH_DENSITY}): {scene.capacity} splats; inputs and the depths standing "
+          f"in for the chart depths rendered by B1 from inward_cameras({n_views}, {w}, {h}); "
+          f"covered share per view "
+          + " ".join(f"{float((o['rend_alpha'] > 0.5).float().mean()):.2f}" for o in outs))
+    check(bool((empty > 0).any()),
+          "input depths hold empty (0) pixels, share per view "
+          + " ".join(f"{float(e):.3f}" for e in empty))
+    del outs, scene
+    priors = see3d_priors(5, SEE3D_SHAPE[3])
+    priors.depth_model = DepthAnything(LOOP_DA2, seed=6, device=DEVICE)
+    # With the default init the head's last convolution is negative over the
+    # whole image and its ReLU gives a disparity of 0 everywhere: its bias is
+    # set to 1, so the lift fits a disparity that varies.
+    with torch.no_grad():
+        priors.depth_model.model.depth_head.scratch.output_conv2[2].bias.fill_(1.0)
+    n_da2 = sum(p.numel() for p in priors.depth_model.model.parameters())
+    n_calls = len(priors.see3d.sampler.timesteps)
+    per_call_b3 = 2 * priors.see3d.unet.cfg.n_transformer_blocks()
+    print(f"  DepthAnything({LOOP_DA2!r}): {n_da2 / 1e6:.1f}M parameters, seeded random "
+          f"weights; See3D DDIM {n_calls} timesteps")
+
+    # Instruments, all outside the library: DA2 time per infer_images call,
+    # the selection's inputs, the depth lift's inputs, each step's loss.
+    da2 = priors.depth_model
+    infer = da2.infer_images
+    da2_ms, da2_first = [], []
+
+    def timed_infer(imgs, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = infer(imgs, **kw)
+        torch.cuda.synchronize()
+        da2_ms.append((len(imgs), (time.perf_counter() - t0) * 1e3))
+        if not da2_first:
+            da2_first.append(imgs[0].detach().clone())
+        return out
+
+    da2.infer_images = timed_infer
+    select = orch.select_need_inpaint_views
+    sel_calls, lifts, losses = [], [], []
+
+    def select_spy(cand, rates, xyz, **kw):
+        ids = select(cand, rates, xyz, **kw)
+        sel_calls.append(dict(cand=cand, rates=list(rates), xyz=xyz, kw=kw, ids=list(ids)))
+        return ids
+
+    align = orch.depth_linear_align
+
+    def align_spy(disp, depth, mask):
+        lifts.append((depth, mask))
+        return align(disp, depth, mask)
+
+    step = Trainer.step
+
+    def step_spy(self, sync_metrics=True):
+        m = step(self, sync_metrics)
+        losses.append(m["loss"])
+        return m
+
+    orch.select_need_inpaint_views, orch.depth_linear_align = select_spy, align_spy
+    Trainer.step = step_spy
+    rows = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            pipe = orch.G4SplatPipeline(orch.PipelineConfig(output_path=tmp),
+                                        priors, device=DEVICE)
+            parts_s = {"sweeps": 0.0, "see3d": 0.0}
+
+            def timed(part, fn):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    parts_s[part] += time.perf_counter() - t0
+                    return out
+                return run
+
+            pipe._render_maps_batch = timed("sweeps", pipe._render_maps_batch)
+            pipe._run_see3d_inpaint = timed("see3d", pipe._run_see3d_inpaint)
+            cfg = pipe.cfg
+            print(f"  PipelineConfig: select_inpaint_num {cfg.select_inpaint_num}, "
+                  f"{cfg.n_see3d_stages} stages, vis_grid_resolution "
+                  f"{cfg.vis_grid_resolution}, none-visible bounds {cfg.none_visible_low}/"
+                  f"{cfg.none_visible_high}, gaussian_capacity {cfg.gaussian_capacity}, "
+                  f"render_backend {cfg.render_backend!r}; {LOOP_ITERATIONS} iterations per "
+                  f"train_gaussians")
+            pipe.load_inputs(images, cams)
+            pipe.state.depths, pipe.state.prior_depths = depths.clone(), depths.clone()
+            steps = [("render_chart_views", ()), ("excavate_planes", ()),
+                     ("refine_plane_depths", ()), ("train_gaussians", (LOOP_ITERATIONS,))]
+            for k in range(1, cfg.n_see3d_stages + 1):
+                steps += [("see3d_stage", (k,)), ("refine_plane_depths", (k == 3,)),
+                          ("train_gaussians", (LOOP_ITERATIONS,))]
+            n_selected = 0
+            torch.cuda.synchronize()
+            fwd.launches = bwd.launches = att.launches = 0
+            t_loop = time.perf_counter()
+            for name, args in steps:
+                st = pipe.state
+                c0 = (fwd.launches, bwd.launches, att.launches)
+                v0, n_sel_calls, n_lifts, n_losses = len(st.images), len(sel_calls), len(lifts), \
+                    len(losses)
+                getattr(pipe, name)(*args)
+                delta = tuple(a - b for a, b in zip((fwd.launches, bwd.launches, att.launches), c0))
+                rows.append((f"{name}{args if args and name != 'train_gaussians' else ''}",
+                             pipe.timing_log[-1][1], delta, dict(parts_s)))
+                parts_s.update(sweeps=0.0, see3d=0.0)
+                if name == "train_gaussians":
+                    sc = st.scene
+                    live = sc.alive
+                    bad = sum(int((~torch.isfinite(getattr(sc, f)[live])).any(-1).sum()) for f in
+                              ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw",
+                               "rotation_raw"))
+                    step_losses = torch.stack(losses[n_losses:])
+                    check(bad == 0 and bool(torch.isfinite(step_losses).all())
+                          and len(step_losses) == LOOP_ITERATIONS,
+                          f"train_gaussians after {len(rows) - 1} methods: {int(live.sum())} live "
+                          f"splats in {sc.capacity} slots, {bad} rows with a non-finite value; "
+                          f"{len(step_losses)} losses, "
+                          f"{int(torch.isfinite(step_losses).sum())} finite "
+                          f"({float(step_losses[0]):.4f} -> {float(step_losses[-1]):.4f})")
+                    check(delta[1] == LOOP_ITERATIONS,
+                          f"train_gaussians launched B2 {delta[1]} times ({LOOP_ITERATIONS})")
+                if name != "see3d_stage":
+                    continue
+                k = args[0]
+                call = sel_calls[n_sel_calls]
+                sel = call["ids"]
+                n_cand = call["cand"].w2c.shape[0]
+                n_selected += len(sel)
+                check(len(st.images) == v0 + len(sel) and len(sel) > 0
+                      and st.anchor_view_ids == list(range(v0, v0 + len(sel))),
+                      f"stage {k}: {n_cand} candidates, {len(sel)} selected {sel}; views "
+                      f"{v0} -> {len(st.images)}, anchor ids {st.anchor_view_ids[:1]}.."
+                      f"{st.anchor_view_ids[-1:]}")
+                new = st.depths[v0:]
+                lifted = lifts[n_lifts:]
+                same = all(torch.equal(new[i][m], d[m]) for i, (d, m) in enumerate(lifted))
+                shown = (f"visible share {float(torch.stack([m for _, m in lifted]).float().mean()):.3f}; "
+                         f"min {float(new.min()):.3e}, max {float(new.max()):.3e}"
+                         if lifted else "no views")
+                check(len(lifted) == len(sel) > 0 and same and bool(torch.isfinite(new).all())
+                      and bool((new > 0).all()),
+                      f"stage {k}: lifted depths equal the rendered depth inside each visible "
+                      f"mask bit for bit, finite and > 0 everywhere ({shown})")
+                check(delta[2] == per_call_b3 * n_calls,
+                      f"stage {k} launched B3 {delta[2]} times ({per_call_b3} per UNet call x "
+                      f"{n_calls} calls)")
+                stage_dir = os.path.join(pipe.store.see3d_root, f"stage{k}")
+                written = {os.path.relpath(os.path.join(d, f), stage_dir)
+                           for d, _, fs in os.walk(stage_dir) for f in fs}
+                check(written - {"invisible_points.ply"} == stage_files(k, v0, n_cand, len(sel)),
+                      f"stage {k}: {len(written)} files under stage{k}/, by name")
+                if k == 1:
+                    cand = call["cand"]
+                    with plain_b1():
+                        alphas = pipe._render_maps_batch(cand, n_cand, keys=("rend_alpha",))
+                    rates = [none_visible_rate_from_alpha(a) for a in alphas["rend_alpha"]]
+                    d_rate = max(abs(a - b) for a, b in zip(rates, call["rates"]))
+                    ids = select(cand, rates, call["xyz"], **call["kw"])
+                    check(d_rate <= RATE_TOL and ids == sel,
+                          f"stage 1 sweep again with B1's plain version: none-visible rates "
+                          f"max|d| {d_rate:.2e} <= {RATE_TOL}, selection {ids} == {sel}")
+                    del alphas
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t_loop
+            launches = (fwd.launches, bwd.launches, att.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            cum = np.load(os.path.join(pipe.store.see3d_root, "see3d_cameras.npz"))
+            check(int(cum["n_views"]) == n_selected == len(pipe.state.images) - n_views,
+                  f"see3d_cameras.npz n_views {int(cum['n_views'])} == {n_selected} selected "
+                  f"over the stages")
+            reports = dict(pipe.stage_reports)
+            timing_log = list(pipe.timing_log)
+    finally:
+        orch.select_need_inpaint_views, orch.depth_linear_align = select, align
+        Trainer.step = step
+        da2.infer_images = infer
+
+    img = da2_first[0]
+    card = infer(img[None])[0]
+    host_model = DepthAnything(LOOP_DA2, model=da2.model.to("cpu"))
+    host = host_model.infer_images(img[None].cpu())[0]
+    d = float((card.cpu() - host).abs().max())
+    check(d <= DA2_REL * float(host.abs().max()) and float(host.std()) > 0,
+          f"DA2 {LOOP_DA2} on one inpainted view, card vs the same module on the CPU (TF32 "
+          f"off): max|d| {d:.3e} <= {DA2_REL} * max|CPU| {float(host.abs().max()):.4e}; CPU "
+          f"disparity std {float(host.std()):.3e} > 0")
+    return dict(rows=rows, loop_s=loop_s, launches=launches, peak=peak, reports=reports,
+                da2_ms=da2_ms, timing_log=timing_log,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def print_see3d_loop(r):
+    """Phase 16's numbers: per method host seconds and launches, per stage
+    counts, DA2 ms per call, launches, peak memory."""
+    print("  method: host-clock s (synchronized), launches (B1, B2, B3)")
+    for name, sec, delta, parts in r["rows"]:
+        inner = (f"; sweeps {parts['sweeps']:.3f} s (render_maps_batch), See3D "
+                 f"{parts['see3d']:.3f} s" if name.startswith("see3d_stage") else "")
+        print(f"    {name}: {sec:.3f} s, {delta}{inner}")
+    for k, rep in sorted(r["reports"].items()):
+        print(f"  stage {k}: {rep['candidates']} candidates, {len(rep['selected'])} selected, "
+              f"{rep['views']} views after the merge")
+    print("  DA2 infer_images ms per call (views): " + ", ".join(
+        f"{ms:.1f} ({n})" for n, ms in r["da2_ms"]))
+    b1, b2, b3 = r["launches"]
+    print(f"  launches in the loop: B1 {b1}, B2 {b2}, B3 {b3}")
+    print(f"  loop {r['loop_s']:.1f} s, phase {r['phase_s']:.1f} s (host clock); peak device "
+          f"memory {r['peak']:.2f} GiB")
 
 
 def print_mesh_timings(r):
@@ -1858,6 +2156,13 @@ def main():
 
     print("== phase 15: mesh timings")
     print_mesh_timings(mesh14)
+    torch.cuda.empty_cache()
+
+    print(f"== phase 16: one See3D loop through G4SplatPipeline, full width ({LOOP_DA2} "
+          f"DepthAnything V2, MVDream See3D), production PipelineConfig save "
+          f"{LOOP_ITERATIONS} steps per train_gaussians and {SEE3D_SHAPE[3] + 1} DDIM timesteps")
+    loop16 = see3d_loop_phase()
+    print_see3d_loop(loop16)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -1877,14 +2182,17 @@ def main():
     a_ms, a_plain, a_lib, a_bound, a_by = rows10[B3_SHAPES[0]]
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
-         "launches": launches + launches8[0] + launches13 + mesh14["launches"],
+         "launches": launches + launches8[0] + launches13 + mesh14["launches"]
+                     + loop16["launches"][0],
          "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
-         "launches": launches8[1], "max_abs_err": max_abs_err_bwd, "ms": k_ms,
+         "launches": launches8[1] + loop16["launches"][1], "max_abs_err": max_abs_err_bwd,
+         "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},
         {"name": att.name, "route": "cuda", "source": att.source, "replaces": att.replaces,
-         "launches": launches11, "max_abs_err": err10, "ms": a_ms, "plain_ms": a_plain,
+         "launches": launches11 + loop16["launches"][2], "max_abs_err": err10, "ms": a_ms,
+         "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

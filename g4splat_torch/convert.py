@@ -10,7 +10,9 @@ for `TrainConfig` and `ViewData`, so the port never imports the JAX package.
 `lpips_params_from` turns the JAX package's LPIPS params (HWIO
 convolutions) into the port's (OIHW). `flax_state_dict` turns the flax params of the JAX package's prior networks
 (`MultiViewUNet`, `AutoencoderKL`, `CLIPVision`, `CLIPText`) into the state
-dicts of the port's modules of the same names.
+dicts of the port's modules of the same names; `depth_anything_state_dict`
+does the same for `DepthAnythingV2`, whose names follow the official torch
+checkpoint instead.
 """
 
 from __future__ import annotations
@@ -134,3 +136,47 @@ def lpips_params_from(params, device: DeviceLike = None) -> Dict:
     return {"conv": [{"w": f32(np.asarray(c["w"]).transpose(3, 2, 0, 1)), "b": f32(c["b"])}
                      for c in params["conv"]],
             "lin": [f32(w) for w in params["lin"]]}
+
+
+def depth_anything_state_dict(params, encoder: str = "vitl") -> Dict[str, torch.Tensor]:
+    """The JAX package's `DepthAnythingV2` flax params → the port's state dict
+    (the official checkpoint's names). The inverse of the JAX package's
+    `convert_torch_checkpoint`: DINOv2's ``blocks_i`` become ``blocks.i``, the
+    head's ``projects_i`` / ``resize_i`` / ``layerN_rn`` / ``refinenetN`` /
+    ``output_conv2_i`` become ``projects.i`` / ``resize_layers.i`` /
+    ``scratch.*`` / ``scratch.output_conv2.i``, and the two transposed
+    convolutions flip their taps back: flax (kh, kw, in, out) mirrored in kh
+    and kw → torch (in, out, kh, kw). The parameters the JAX model does not
+    create (`pretrained.mask_token`, unused at inference, and refinenet4's
+    `resConfUnit1`, which the reference creates and never calls) are
+    zero-filled."""
+    from g4splat_torch.priors.depth_anything import DPT_FEATURES
+    from g4splat_torch.priors.dinov2 import VIT_CONFIGS
+
+    params = params.get("params", params)
+    out = {"pretrained." + k: v for k, v in flax_state_dict(params["pretrained"]).items()}
+    head = dict(params["depth_head"])
+    for i in (0, 1):
+        layer = head.pop(f"resize_{i}")
+        w = np.array(layer["kernel"], np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+        out[f"depth_head.resize_layers.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
+        out[f"depth_head.resize_layers.{i}.bias"] = torch.from_numpy(
+            np.array(layer["bias"], np.float32))
+    renamed = {"resize_3": "resize_layers_3"}
+    for name, layer in head.items():
+        if name.startswith("layer"):            # layerN_rn keeps its name
+            out.update({f"depth_head.scratch.{name}.{k}": v
+                        for k, v in flax_state_dict(layer).items()})
+            continue
+        prefix = ("depth_head." if name.startswith("projects_") or name in renamed
+                  else "depth_head.scratch.")
+        for k, v in flax_state_dict({renamed.get(name, name): layer}).items():
+            out[prefix + k] = v
+    dim, f = VIT_CONFIGS[encoder]["embed_dim"], DPT_FEATURES[encoder]
+    out.setdefault("pretrained.mask_token", torch.zeros(1, dim))
+    for conv in ("conv1", "conv2"):
+        out.setdefault(f"depth_head.scratch.refinenet4.resConfUnit1.{conv}.weight",
+                       torch.zeros(f, f, 3, 3))
+        out.setdefault(f"depth_head.scratch.refinenet4.resConfUnit1.{conv}.bias",
+                       torch.zeros(f))
+    return out

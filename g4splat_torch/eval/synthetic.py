@@ -158,6 +158,23 @@ def cull_mesh_to_views(verts: np.ndarray, faces: np.ndarray, cameras,
     return verts[used], remap[faces[fkeep]].astype(np.int32)
 
 
+def inward_cameras(n: int, width: int, height: int, device: DeviceLike = None):
+    """Ring of n cameras of radius 1 around (0, -0.2, 0.1), above the box,
+    each looking across the room and down (80° horizontal field of view).
+    Unlike `room_cameras`, whose eyes sit at the open front, outside the
+    space the views observe, the ring's own orbit lies in observed space, so
+    the See3D stage-1 proposals (an orbit at the cameras' radius) survive
+    the visibility grid."""
+    cams = []
+    for a in np.linspace(0, 2 * np.pi, n, endpoint=False) + 0.3:
+        d = np.array([np.sin(a), 0.0, np.cos(a)])
+        cams.append(lookat_camera(np.array([0.0, -0.2, 0.1]) + d,
+                                  np.array([0.0, 0.45, 0.1]) - 1.2 * d, [0, -1, 0],
+                                  fx=0.6 * width, fy=0.6 * width, width=width,
+                                  height=height, device=device))
+    return stack_cameras(cams)
+
+
 def room_cameras(n: int, width: int, height: int, device: DeviceLike = None):
     """Ring of n cameras inside the room looking past the box."""
     cams = []

@@ -3,7 +3,8 @@
 Round-trips the reference's on-disk Gaussian schema
 (2d-gaussian-splatting/scene/gaussian_model.py:276-316: x y z, nx ny nz,
 f_dc_*, f_rest_*, opacity, scale_*, rot_*, optional mip_filter — float32
-little-endian), point clouds and triangle meshes (`save_mesh_ply`). Files
+little-endian), point clouds (`save_point_cloud_ply`) and triangle meshes
+(`save_mesh_ply`). Files
 written here and by the JAX package are interchangeable; the two differ only
 in the header's comment line.
 """
@@ -119,6 +120,26 @@ def write_ply(path: str, vertex_fields: Dict[str, np.ndarray],
         buf.write(frec.tobytes())
     with open(path, "wb") as f:
         f.write(buf.getvalue())
+
+
+def save_point_cloud_ply(path: str, points, colors=None, normals=None) -> None:
+    """A point cloud as binary PLY: float32 x y z, optional float32 nx ny nz,
+    optional uchar red green blue (float colours: clip to [0, 1], × 255,
+    truncated to uint8)."""
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    pts = host(points).astype(np.float32)
+    fields = {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2]}
+    if normals is not None:
+        nm = host(normals).astype(np.float32)
+        fields.update({"nx": nm[:, 0], "ny": nm[:, 1], "nz": nm[:, 2]})
+    if colors is not None:
+        c = host(colors)
+        if c.dtype != np.uint8:
+            c = (np.clip(c, 0, 1) * 255).astype(np.uint8)
+        fields.update({"red": c[:, 0], "green": c[:, 1], "blue": c[:, 2]})
+    write_ply(path, fields)
 
 
 def save_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray,

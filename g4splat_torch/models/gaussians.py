@@ -166,6 +166,8 @@ class GaussianScene:
         scene = GaussianScene.empty(capacity, max_sh_degree, device=dev)
 
         def f32(x):
+            if torch.is_tensor(x):
+                return x.to(dev, torch.float32)
             return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
         pts = f32(points)

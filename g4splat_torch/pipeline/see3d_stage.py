@@ -1,6 +1,6 @@
 """The See3D generative inpainting stage (counterpart of
-`g4splat_tpu.pipeline.orchestrator.G4SplatPipeline._run_see3d_inpaint` and
-the See3D fields of its `Priors`).
+`g4splat_tpu.pipeline.orchestrator.G4SplatPipeline._run_see3d_inpaint`).
+The priors it reads are the See3D fields of `orchestrator.Priors`.
 
 `run_see3d_inpaint` runs every selected warp of a stage through the MV-UNet
 jointly, with the input views pinned as all-visible reference frames, the
@@ -12,8 +12,7 @@ last-prediction chaining when `group_size` splits the sequence
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,21 +20,12 @@ import torch
 from g4splat_torch.core.resize import resize_bilinear
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
 from g4splat_torch.priors.see3d import Attention, Noise, See3DPipeline
-from g4splat_torch.priors.vae import AutoencoderKL
+
+if TYPE_CHECKING:
+    from g4splat_torch.pipeline.orchestrator import Priors
 
 # (seed, latent shape (F, 4, h, w), timesteps) → (x_T, one noise per timestep)
 NoiseFn = Callable[[int, Tuple[int, ...], int], Noise]
-
-
-@dataclass
-class Priors:
-    """Injected prior networks: the See3D fields of the JAX `Priors` (the
-    other networks come with their slices)."""
-    see3d: Optional[See3DPipeline] = None
-    see3d_sr: Optional[See3DPipeline] = None      # SR checkpoint, else see3d
-    vae: Optional[AutoencoderKL] = None
-    image_embedder: Optional[object] = None       # (H, W, 3) image → (1, 77, C)
-    text_embedder: Optional[object] = None        # () → (1, 77, C)
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:

@@ -1,2 +1,3 @@
-"""Prior networks of the See3D stage: the MV-UNet with its DDIM sampler and
-pipeline, the VAE, and the two CLIP towers."""
+"""Prior networks: for See3D the MV-UNet with its DDIM sampler and
+pipeline, the VAE and the two CLIP towers; DepthAnything V2 (DINOv2 and the
+DPT head) for the depth lift."""

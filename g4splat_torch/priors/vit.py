@@ -1,14 +1,18 @@
 """Vision-Transformer building blocks (counterpart of the part of
-`g4splat_tpu.priors.vit` that the CLIP towers use).
+`g4splat_tpu.priors.vit` that the CLIP towers and DINOv2 use).
 
-Pre-LN blocks with fused-qkv attention and an exact-GELU MLP; LayerNorms use
-ε = 1e-6, as the JAX package's flax defaults do (ROADMAP C6). Attention here
-is dense softmax attention in plain PyTorch, as the JAX package leaves it to
-``jax.nn.dot_product_attention``. RoPE, cross-attention, the CroCo decoder
-block and the patch embedding belong to the MASt3R / DINOv2 slice.
+Pre-LN blocks with fused-qkv attention and an exact-GELU MLP, optionally
+with LayerScale (DINOv2); LayerNorms use ε = 1e-6, as the JAX package's flax
+defaults do (ROADMAP C6; DINOv2's reference uses 1e-6 as well). Attention
+here is dense softmax attention in plain PyTorch, as the JAX package leaves
+it to ``jax.nn.dot_product_attention``. The patch embedding is a stride-p
+convolution over (B, H, W, 3) images. RoPE, cross-attention and the CroCo
+decoder block belong to the MASt3R slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,18 +52,44 @@ class Attention(nn.Module):
         return self.proj(dot_product_attention_plain(q, k, v).reshape(B, N, C))
 
 
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_value: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init_value))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, layerscale: Optional[float] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if layerscale is not None:
+            self.ls1 = LayerScale(dim, layerscale)
+            self.ls2 = LayerScale(dim, layerscale)
+        else:
+            self.ls1 = self.ls2 = nn.Identity()
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x):
+        """x: (B, H, W, 3) → ((B, N, C) tokens, (gh, gw))."""
+        x = self.proj(x.permute(0, 3, 1, 2))
+        gh, gw = x.shape[2], x.shape[3]
+        return x.flatten(2).transpose(1, 2), (gh, gw)
 
 
 def interpolate_pos_embed(pos: torch.Tensor, gh: int, gw: int) -> torch.Tensor:

@@ -347,7 +347,8 @@ def test_see3d_stage_runs_b3_on_the_card_and_refuses_host_priors(cuda):
     """run_see3d_inpaint defaults to the card: priors there run every UNet
     attention through B3 (2 launches per transformer block and UNet call);
     card inputs with priors left on the CPU are refused, not moved."""
-    from g4splat_torch.pipeline.see3d_stage import Priors, run_see3d_inpaint
+    from g4splat_torch.pipeline.orchestrator import Priors
+    from g4splat_torch.pipeline.see3d_stage import run_see3d_inpaint
     from g4splat_torch.priors import see3d, vae
 
     def priors(device):

@@ -22,7 +22,8 @@ import g4splat_tpu.priors.clip_vision as JV
 import g4splat_tpu.priors.see3d as J
 import g4splat_tpu.priors.vae as JVAE
 from g4splat_torch.convert import flax_state_dict
-from g4splat_torch.pipeline.see3d_stage import Priors, run_see3d_inpaint
+from g4splat_torch.pipeline.orchestrator import Priors
+from g4splat_torch.pipeline.see3d_stage import run_see3d_inpaint
 from g4splat_torch.priors import clip_text as TT
 from g4splat_torch.priors import clip_vision as TV
 from g4splat_torch.priors import see3d as T
