@@ -260,6 +260,18 @@ LOOP_DA2 = "vitl"
 RATE_TOL = 1e-4
 # Gate (ii): DA2 on the card vs the same module on the CPU, one inpainted view.
 DA2_REL = 1e-3
+# Phase 17: G4SplatPipeline.run() from posed photos: box_room(MESH_DENSITY)
+# rendered by B1 from inward_cameras(10, 512, 384), the last two views held
+# out, a calibrated source tree naming FRONT_DENSE in dense_view.json;
+# MASt3RConfig() at full width.
+FRONT_VIEWS = (10, 512, 384)
+FRONT_EVAL = [8, 9]
+FRONT_DENSE = [0, 2, 4, 6]
+# Gate (i): MASt3R on the card vs on the CPU, and the matching crop (h, w).
+MAST3R_REL = 1e-3
+MATCH_CROP = (48, 64)
+RESULT_KEYS = EVAL_KEYS[:5] + ["Acc", "Comp", "Chamfer-L1", "Prec", "Recal", "F-score",
+                               "Normal-Acc", "Normal-Comp", "Normal-Consistency"]
 # fp32 operations of one (point, view) step of ops/tsdf.integrate_views in the
 # production options: projection 21, rounding and clamps 6, validity 11,
 # bilinear depth 22, difference and truncation 7, weight and running mean 9,
@@ -1721,6 +1733,429 @@ def print_see3d_loop(r):
           f"memory {r['peak']:.2f} GiB")
 
 
+def plain_matches(d1, d2, c1, c2, subsample=8):
+    """extract_correspondences' plain version: the whole similarity of the
+    two (H, W, D) maps at once (no blocks), argmax both ways, the mutual
+    pairs on the subsample grid of image 1, conf sqrt(c1 c2). Host numpy."""
+    import torch
+
+    H, W, D = d1.shape
+    a, b = d1.reshape(-1, D), d2.reshape(-1, D)
+    nn12, nn21 = torch.argmax(a @ b.T, 1), torch.argmax(b @ a.T, 1)
+    idx = torch.arange(H * W, device=a.device)
+    grid = ((idx // W) % subsample == 0) & ((idx % W) % subsample == 0)
+    idx1 = idx[(nn21[nn12] == idx) & grid]
+    idx2 = nn12[idx1]
+    conf = torch.sqrt(c1.reshape(-1)[idx1] * c2.reshape(-1)[idx2])
+    i1, i2 = idx1.cpu().numpy(), idx2.cpu().numpy()
+    return (np.stack([i1 % W, i1 // W], 1), np.stack([i2 % d2.shape[1], i2 // d2.shape[1]], 1),
+            conf.cpu().numpy())
+
+
+def front_end_phase():
+    """Phase 17: G4SplatPipeline.run() from posed photos on the card, with
+    gates (i)-(vii). Returns what the summary prints."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.device import fp32_math
+    from g4splat_torch.eval.synthetic import box_room, inward_cameras
+    from g4splat_torch.io import colmap as colmap_io
+    from g4splat_torch.ops import attention_cuda, rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.pipeline import orchestrator as orch
+    from g4splat_torch.pipeline import sfm as S
+    from g4splat_torch.priors.depth_anything import DepthAnything
+    from g4splat_torch.priors.mast3r import (MASt3RConfig, MASt3RModel,
+                                             extract_correspondences, reciprocal_nn_matches)
+    from g4splat_torch.train.trainer import Trainer
+
+    n_views, w, h = FRONT_VIEWS
+    fwd, bwd = rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD
+    att = attention_cuda.ATTENTION_FWD
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    scene, gt_mesh = box_room(MESH_DENSITY, device=DEVICE)
+    cams = inward_cameras(n_views, w, h, device=DEVICE)
+    with torch.no_grad():
+        maps = [render(camera_at(cams, v), scene, backend="cuda") for v in range(n_views)]
+        images = torch.stack([r["render"].clamp(0, 1) for r in maps])
+    print(f"  box_room({MESH_DENSITY}): {scene.capacity} splats and its GT mesh "
+          f"({len(gt_mesh[1])} faces); {n_views} photos rendered by B1 from "
+          f"inward_cameras({n_views}, {w}, {h}), no depth passed on; views {FRONT_EVAL} "
+          f"held out")
+    priors = see3d_priors(7, SEE3D_SHAPE[3])
+    priors.depth_model = DepthAnything(LOOP_DA2, seed=8, device=DEVICE)
+    with torch.no_grad():       # as phase 16: a disparity that varies
+        priors.depth_model.model.depth_head.scratch.output_conv2[2].bias.fill_(1.0)
+    mcfg = MASt3RConfig()
+    model = MASt3RModel(mcfg, seed=9, device=DEVICE)
+    # Random weights, set as phase 16 sets DA2's bias, so that the geometry
+    # stages get what a trained MASt3R gives them in kind: a trained MASt3R
+    # puts every point in front of its camera, where on random weights half
+    # the pixels get z <= 0, clamped to 1e-3. Each head's last convolution
+    # has its xyz weights scaled by 0.1 and its z bias set to 0.75: points
+    # near (0, 0, expm1(0.75) = 1.12) in the camera's frame (at a bias of 1.0
+    # and above, no stage-1 candidate saw half its pixels; PERF.md section 4).
+    with torch.no_grad():
+        for head in (model.model.downstream_head1, model.model.downstream_head2):
+            last = head.dpt.head[4]
+            last.weight[:3] *= 0.1
+            last.bias[:3] = torch.tensor([0.0, 0.0, 0.75])
+    # A trained MASt3R's descriptors match the same surface point across
+    # views, and its pointmaps follow the surface, edges included. Random
+    # descriptors give random matches, which posed SfM pulls together until
+    # its depths span 1e-4 to 1.6e2 (ROADMAP C14); random pointmaps carry no
+    # edge, so SfM's stride-8 depth anchors blur each depth step, and chart
+    # alignment took one pixel by such a step below 0 in 1 of 3 runs on the
+    # same inputs (ROADMAP C19). The network runs at full width, its heads
+    # too (gate (i) holds their outputs), and what reaches the geometry
+    # stages is keyed on each pixel's box_room surface point (B1's surface
+    # depth backprojected), where the pixel sees a surface:
+    # - the descriptors: the point lifted onto the unit 3-sphere by inverse
+    #   stereographic projection of (X - centre) / radius. The dot product of
+    #   two lifts is 1 - 2|p - q|^2 / ((1 + |p|^2)(1 + |q|^2)), greatest at
+    #   the same point, so the mutual nearest neighbours are true matches.
+    #   Pixels that see no surface share one unit vector orthogonal to the
+    #   lifts: at most one such pair per image pair survives the mutual test;
+    # - the pointmaps: the point in the frame of the pair's camera (X11 and
+    #   X21 in the first image's, X22 and X12 in the second's). Pixels that
+    #   see no surface keep the network's points.
+    with torch.no_grad():
+        world = [camera_at(cams, v).backproject(r["surf_depth"]) for v, r in enumerate(maps)]
+        hit = [(r["rend_alpha"] > 0.5) & (r["surf_depth"] > 0) for r in maps]
+        w2cs = [camera_at(cams, v).w2c for v in range(n_views)]
+        pts = torch.cat([x[m] for x, m in zip(world, hit)])
+        centre = pts.mean(0)
+        radius = float((pts - centre).norm(dim=-1).max())
+        surface_desc = []
+        for x, m in zip(world, hit):
+            p = (x - centre) / radius
+            n2 = (p * p).sum(-1, keepdim=True)
+            d = torch.zeros(h, w, mcfg.local_feat_dim, device=DEVICE)
+            d[..., :4] = torch.cat([2 * p, n2 - 1], -1) / (n2 + 1)
+            d[~m] = 0.0
+            d[~m, 4] = 1.0
+            surface_desc.append(d[None])
+    empty = [int((~m).sum()) for m in hit]
+    del scene, maps, pts
+    priors.mast3r = model
+    print(f"  MASt3R {mcfg.enc_embed_dim}/{mcfg.enc_depth} encoder, {mcfg.dec_embed_dim}/"
+          f"{mcfg.dec_depth} decoders: {sum(p.numel() for p in model.model.parameters()) / 1e6:.1f}M "
+          f"parameters, seeded random weights; DepthAnything({LOOP_DA2!r}); See3D DDIM "
+          f"{SEE3D_SHAPE[3] + 1} timesteps; sam_generator None; descriptors and pointmaps "
+          f"keyed on the surface point (pixels on no surface per view: {empty})")
+    n_calls = len(priors.see3d.sampler.timesteps)
+    per_call_b3 = 2 * priors.see3d.unet.cfg.n_transformer_blocks()
+
+    # Instruments, all outside the library.
+    infer, sym = model.infer_pair, model.symmetric_inference_batch
+    chunk_ms, corres, rectified, sfm_runs, chart_runs, losses = [], [], [], [], [], []
+
+    def timed_infer(a, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = infer(a, b)
+        torch.cuda.synchronize()
+        chunk_ms.append((len(a), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def keyed_batch(imgs1, imgs2, **kw):
+        ims = pipe.state.images
+
+        def view(img):
+            return next(v for v in range(len(ims)) if torch.equal(img, ims[v]))
+
+        def keyed(x, v, f):     # image v's maps in camera f's frame
+            pts = torch.where(hit[v][..., None], world[v] @ w2cs[f][:3, :3].T + w2cs[f][:3, 3],
+                              x["pts3d"][0])
+            return dict(x, pts3d=pts[None], desc=surface_desc[v])
+
+        return [tuple(keyed(x, v, f) for x, v, f in zip(o, (i, j, j, i), (i, i, j, j)))
+                for o, i, j in ((o, view(a), view(b)) for o, a, b in
+                                zip(sym(imgs1, imgs2, **kw), imgs1, imgs2))]
+
+    ext, rect, sga, ac, step = (orch.extract_correspondences, S.rectify_to_center_pp,
+                                S.sparse_global_alignment, orch.align_charts, Trainer.step)
+
+    def ext_spy(*a, **kw):
+        out = ext(*a, **kw)
+        corres.append(len(out[0]))
+        return out
+
+    def rect_spy(*a, **kw):
+        out = rect(*a, **kw)
+        rectified.append(out[1])
+        return out
+
+    def sga_spy(*a, **kw):
+        stats = {}
+        res = sga(*a, stats=stats, **kw)
+        sfm_runs.append((res, stats))
+        return res
+
+    def ac_spy(*a, **kw):
+        stats = {}
+        res = ac(*a, stats=stats, **kw)
+        chart_runs.append((res, stats))
+        return res
+
+    def step_spy(self, sync_metrics=True):
+        m = step(self, sync_metrics)
+        losses.append(m["loss"])
+        return m
+
+    model.infer_pair, model.symmetric_inference_batch = timed_infer, keyed_batch
+    orch.extract_correspondences, orch.align_charts = ext_spy, ac_spy
+    S.rectify_to_center_pp, S.sparse_global_alignment = rect_spy, sga_spy
+    Trainer.step = step_spy
+    rows, meshes, colmap_s = [], [], []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src, out = os.path.join(tmp, "source"), os.path.join(tmp, "out")
+            ccams, cimgs = {}, {}
+            for v in range(n_views):
+                c = camera_at(cams, v)
+                w2c = c.w2c.cpu().numpy().astype(np.float64)
+                ccams[v + 1] = colmap_io.ColmapCamera(v + 1, "PINHOLE", w, h, np.array(
+                    [float(c.fx), float(c.fy), float(c.cx), float(c.cy)]))
+                cimgs[v + 1] = colmap_io.ColmapImage(v + 1, colmap_io.rotmat2qvec(w2c[:3, :3]),
+                                                     w2c[:3, 3], v + 1, f"frame_{v:06d}.png")
+            colmap_io.write_model(ccams, cimgs, {}, os.path.join(src, "sparse", "0"))
+            with open(os.path.join(src, "dense_view.json"), "w") as f:
+                json.dump({"train": FRONT_DENSE}, f)
+            pipe = orch.G4SplatPipeline(orch.PipelineConfig(
+                source_path=src, output_path=out, sfm_config="posed", alignment_config="default",
+                use_multires_tsdf=True, n_see3d_stages=1, train_iterations=LOOP_ITERATIONS,
+                eval_split=FRONT_EVAL), priors, device=DEVICE)
+            cfg = pipe.cfg
+            print(f"  PipelineConfig: sfm {cfg.sfm_config!r}, alignment "
+                  f"{cfg.alignment_config!r}, {cfg.n_see3d_stages} See3D stage, multires mesh "
+                  f"at {cfg.tsdf_resolution}^3, {cfg.train_iterations} iterations per "
+                  f"train_gaussians, capacity {cfg.gaussian_capacity}, render_backend "
+                  f"{cfg.render_backend!r}; the rest PipelineConfig's defaults")
+            write_colmap = pipe._write_colmap
+
+            def timed_write(*a, **kw):
+                t0 = time.perf_counter()
+                write_colmap(*a, **kw)
+                colmap_s.append(time.perf_counter() - t0)
+
+            pipe._write_colmap = timed_write
+            st = pipe.state
+
+            def after_sfm():
+                res, stats = sfm_runs[-1]
+                r = rectified[-1]
+                d_w2c = float((st.cameras.w2c - r.w2c).abs().max())
+                d_f = float((st.cameras.fx - r.fx).abs().max() / r.fx.abs().max())
+                check(d_w2c <= 1e-5 and d_f <= 1e-6 and bool(torch.equal(st.cameras.fx,
+                                                                            st.cameras.fy)),
+                      f"(ii) posed mode keeps the cameras: max|w2c - rectified| {d_w2c:.2e} <= "
+                      f"1e-5, focal rel. |d| {d_f:.2e} <= 1e-6 (float32 log and exp of the "
+                      f"shared focal), fx == fy")
+                d = st.prior_depths
+                check(bool(torch.isfinite(d).all()) and bool((d > 0).all()),
+                      f"(ii) SfM depths finite and > 0 (min {float(d.min()):.3e}, max "
+                      f"{float(d.max()):.3e})")
+                n1 = stats.get("phase1_iters", 0)
+                k1 = len(range(0, n1, max(1, n1 // 10)))
+                ph = [res.losses[:k1], res.losses[k1:]]
+                check(all(p and p[-1] <= p[0] for p in ph),
+                      "(ii) each Adam phase's last sampled loss <= its first: "
+                      + ", ".join(f"{p[0]:.4e} -> {p[-1]:.4e}" for p in ph if p))
+                sfm_root = os.path.join(out, "sfm")
+                rc, ri, _ = colmap_io.read_model(os.path.join(sfm_root, "sparse", "0"))
+                n_train = len(st.images)
+                ok = len(rc) == len(ri) == n_train and all(
+                    np.allclose(rc[v + 1].params, [res.focals[v], res.focals[v], (w - 1) / 2,
+                                                   (h - 1) / 2])
+                    and np.allclose(ri[v + 1].tvec, res.w2c[v][:3, 3], atol=1e-6)
+                    and np.allclose(colmap_io.rotmat2qvec(res.w2c[v][:3, :3]), ri[v + 1].qvec,
+                                    atol=1e-6) for v in range(n_train))
+                ac_, ai, _ = colmap_io.read_model(os.path.join(sfm_root, "all-sparse", "0"))
+                ok &= (sorted(ai) == sorted(cimgs)
+                       and all(np.allclose(ai[k].tvec, cimgs[k].tvec) for k in cimgs))
+                dc, di, _ = colmap_io.read_model(os.path.join(sfm_root, "dense-view-sparse", "0"))
+                ok &= [di[k].name for k in sorted(di)] == [f"frame_{v:06d}.png"
+                                                           for v in FRONT_DENSE]
+                files = ["points.ply", "cameras.json"] + [
+                    f"pointmaps/frame_{v:06d}.json" for v in range(n_train)]
+                present = all(os.path.exists(os.path.join(sfm_root, f)) for f in files)
+                check(ok and present,
+                      f"(iii) sparse/0 ({n_train} views), all-sparse/0 ({len(ai)}) and "
+                      f"dense-view-sparse/0 ({len(di)}) read back with the cameras and poses "
+                      f"written; points.ply, cameras.json and {n_train} pointmaps present")
+
+            def after_charts():
+                res, stats = chart_runs[-1]
+                data = np.load(os.path.join(out, "sfm", "charts_data.npz"))
+                ok = sorted(data.files) == ["confs", "depths", "prior_depths", "pts",
+                                            "scale_factor"]
+                d, c = st.depths, st.confidences
+                check(ok and bool(torch.isfinite(d).all()) and bool((d > 0).all())
+                      and bool(torch.isfinite(c).all()) and res.losses[-1] < res.losses[0],
+                      f"(iv) charts_data.npz keys {sorted(data.files)}; chart depths finite "
+                      f"and > 0 (min {float(d.min()):.3e}), confidences finite; loss "
+                      f"{res.losses[0]:.4e} -> {res.losses[-1]:.4e}")
+
+            def after_train(delta, n_losses):
+                sc = st.scene
+                live = sc.alive
+                bad = sum(int((~torch.isfinite(getattr(sc, f)[live])).any(-1).sum()) for f in
+                          ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw", "rotation_raw"))
+                step_losses = torch.stack(losses[n_losses:])
+                check(bad == 0 and bool(torch.isfinite(step_losses).all())
+                      and delta[1] == LOOP_ITERATIONS,
+                      f"(v) train_gaussians: {int(live.sum())} live splats in {sc.capacity} "
+                      f"slots, {bad} rows with a non-finite value; losses finite "
+                      f"({float(step_losses[0]):.4f} -> {float(step_losses[-1]):.4f}); B2 "
+                      f"{delta[1]} launches ({LOOP_ITERATIONS})")
+
+            def after_see3d(delta, n_losses):
+                check(delta[2] == per_call_b3 * n_calls,
+                      f"(v) see3d_stage launched B3 {delta[2]} times ({per_call_b3} per UNet "
+                      f"call x {n_calls} calls)")
+
+            gates = {"run_sfm": lambda *a: after_sfm(), "align_charts": lambda *a: after_charts(),
+                     "train_gaussians": after_train, "see3d_stage": after_see3d}
+
+            def instrument(name):
+                fn = getattr(pipe, name)
+
+                def run_(*a, **kw):
+                    c0 = (fwd.launches, bwd.launches, att.launches)
+                    n_losses = len(losses)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    delta = tuple(x - y for x, y in
+                                  zip((fwd.launches, bwd.launches, att.launches), c0))
+                    rows.append((f"{name}{a if a else ''}", time.perf_counter() - t0, delta))
+                    if name == "extract_mesh":
+                        meshes.append(res)
+                    gates.get(name, lambda *x: None)(delta, n_losses)
+                    return res
+                setattr(pipe, name, run_)
+
+            for name in ("run_sfm", "align_charts", "render_chart_views", "excavate_planes",
+                         "refine_plane_depths", "train_gaussians", "see3d_stage",
+                         "extract_mesh", "evaluate"):
+                instrument(name)
+            torch.cuda.synchronize()
+            fwd.launches = bwd.launches = att.launches = 0
+            t_run = time.perf_counter()
+            results = pipe.run(images, cams, gt_mesh=gt_mesh)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = (fwd.launches, bwd.launches, att.launches)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            mesh = meshes[-1]
+            check(len(mesh.faces) > 0 and bool(np.isfinite(mesh.vertices).all())
+                  and mesh.vertex_colors is not None and float(mesh.vertex_colors.min()) >= 0
+                  and float(mesh.vertex_colors.max()) <= 1,
+                  f"(vi) mesh: {len(mesh.vertices)} vertices, {len(mesh.faces)} faces, "
+                  f"finite, colours in [0, 1]")
+            it = LOOP_ITERATIONS
+            written = json.load(open(os.path.join(out, f"result_iter_{it}.json")))
+            txt = [l.split(":")[0] for l in
+                   open(os.path.join(out, f"result_iter_{it}.txt")).read().splitlines()]
+            check(list(results) == list(written) == txt == RESULT_KEYS,
+                  f"(vi) result_iter_{it}.json and .txt hold the JAX package's keys for a "
+                  f"held-out split with a GT mesh: "
+                  + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in results.items()))
+            g = os.path.join(out, "free_gaussians")
+            names = [f"point_cloud-ori/iteration_{it}/point_cloud.ply",
+                     f"point_cloud/iteration_{it}/point_cloud.ply",
+                     f"test/ours_{it}/renders/00000.png"]
+            stage1 = os.path.join(out, "sfm", "see3d_render", "stage1")
+            check(all(os.path.exists(os.path.join(g, n)) for n in names)
+                  and os.path.isdir(stage1) and sorted(os.listdir(g)) == [
+                      "point_cloud", "point_cloud-ori", "test"]
+                  and os.path.exists(os.path.join(
+                      out, "tetra_meshes", f"tetra_mesh_binary_search_7_iter_{it}.ply")),
+                  f"(vii) free_gaussians/ holds {sorted(os.listdir(g))}: the stage-1 snapshot "
+                  f"point_cloud-ori, then the final point_cloud; the test renders, "
+                  f"see3d_render/stage1 and the mesh")
+            timing_log = list(pipe.timing_log)
+            pair = st.images[0:1], st.images[1:2]
+    finally:
+        model.infer_pair, model.symmetric_inference_batch = infer, sym
+        orch.extract_correspondences, orch.align_charts = ext, ac
+        S.rectify_to_center_pp, S.sparse_global_alignment = rect, sga
+        Trainer.step = step
+
+    # (i) MASt3R on one pair, card vs the same module on the CPU.
+    card = model.infer_pair(*pair)
+    host = MASt3RModel(mcfg, model=copy.deepcopy(model.model).to("cpu")).infer_pair(
+        *(x.cpu() for x in pair))
+    errs = {}
+    for i, (a, b) in enumerate(zip(card, host)):
+        for k in ("pts3d", "conf", "desc", "desc_conf"):
+            errs[f"out{i + 1}.{k}"] = (float((a[k].cpu() - b[k]).abs().max()),
+                                       float(b[k].abs().max()))
+    check(all(d <= MAST3R_REL * m for d, m in errs.values()),
+          f"(i) MASt3R on one pair, card vs the same module on the CPU (TF32 off): max|d| <= "
+          f"{MAST3R_REL} * max|CPU| for " + ", ".join(f"{k} {d:.2e}/{m:.3e}"
+                                                      for k, (d, m) in errs.items()))
+    ch, cw = MATCH_CROP
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    rand = [torch.nn.functional.normalize(torch.randn(ch, cw, mcfg.local_feat_dim, device=DEVICE,
+                                                      generator=gen), dim=-1) for _ in range(2)]
+    for what, d1, d2 in (("that pair's descriptors", card[0]["desc"][0, :ch, :cw],
+                          card[1]["desc"][0, :ch, :cw]),
+                         ("seeded random unit descriptors", *rand)):
+        c1, c2 = card[0]["desc_conf"][0, :ch, :cw], card[1]["desc_conf"][0, :ch, :cw]
+        with fp32_math():
+            want = plain_matches(d1, d2, c1, c2)
+        got = extract_correspondences(d1, d2, c1, c2)
+        nn_b, mut_b = reciprocal_nn_matches(d1, d2, block=ch * cw // 5)
+        nn_u, mut_u = reciprocal_nn_matches(d1, d2, block=ch * cw)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)) and len(got[0]) > 0
+              and torch.equal(nn_b, nn_u) and torch.equal(mut_b, mut_u),
+              f"(i) extract_correspondences on a {cw}x{ch} crop of {what} equals the "
+              f"unblocked plain version: {len(got[0])} matches; blocks of {ch * cw // 5} give "
+              f"the unblocked indices and mutual mask ({int(mut_u.sum())} mutual)")
+    del host, card
+    return dict(rows=rows, chunk_ms=chunk_ms, corres=corres,
+                sfm_stats=sfm_runs[-1][1], chart_stats=chart_runs[-1][1], colmap_s=colmap_s,
+                launches=launches, peak=peak, run_s=run_s, timing_log=timing_log,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def print_front_end(r):
+    """Phase 17's numbers."""
+    print("  method: host-clock s (synchronized), launches (B1, B2, B3)")
+    for name, sec, delta in r["rows"]:
+        print(f"    {name}: {sec:.3f} s, {delta}")
+    print("  _timed (the JAX package's names): " + ", ".join(
+        f"{n} {s:.3f}" for n, s in r["timing_log"]))
+    print("  MASt3R ms per symmetric_inference_batch chunk (pair orderings): " + ", ".join(
+        f"{ms:.1f} ({n})" for n, ms in r["chunk_ms"]))
+    c = r["corres"]
+    print(f"  pairs {len(c)}; correspondences per pair min {min(c)}, median "
+          f"{int(np.median(c))}, max {max(c)}")
+    s = r["sfm_stats"]
+    print("  SfM ms per iteration: " + ", ".join(
+        f"phase {k} {1e3 * s[f'phase{k}_s_per_iter']:.3f} ({s[f'phase{k}_iters']} iterations)"
+        for k in (1, 2) if f"phase{k}_s_per_iter" in s))
+    print(f"  kinematic tree (scipy ward linkage, host) {1e3 * s['tree_s']:.3f} ms")
+    cs_ = r["chart_stats"]
+    print(f"  chart alignment ms per iteration {1e3 * cs_['s_per_iter']:.3f} "
+          f"({cs_['iters']} iterations)")
+    print(f"  _write_colmap {sum(r['colmap_s']):.3f} s")
+    b1, b2, b3 = r["launches"]
+    print(f"  launches in run(): B1 {b1}, B2 {b2}, B3 {b3}")
+    print(f"  run() {r['run_s']:.1f} s, phase {r['phase_s']:.1f} s (host clock); peak device "
+          f"memory {r['peak']:.2f} GiB")
+
+
 def print_mesh_timings(r):
     """Phase 15: the extraction's stages, the TSDF pass beside its bound, the
     host share and peak memory."""
@@ -2163,6 +2598,13 @@ def main():
           f"{LOOP_ITERATIONS} steps per train_gaussians and {SEE3D_SHAPE[3] + 1} DDIM timesteps")
     loop16 = see3d_loop_phase()
     print_see3d_loop(loop16)
+    torch.cuda.empty_cache()
+
+    print(f"== phase 17: G4SplatPipeline.run() from {FRONT_VIEWS[0]} posed photos at "
+          f"{FRONT_VIEWS[1]}x{FRONT_VIEWS[2]} (MASt3R at full width, SfM, charts, one See3D "
+          f"stage, the multires mesh, eval)")
+    front17 = front_end_phase()
+    print_front_end(front17)
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -2183,15 +2625,17 @@ def main():
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
          "launches": launches + launches8[0] + launches13 + mesh14["launches"]
-                     + loop16["launches"][0],
+                     + loop16["launches"][0] + front17["launches"][0],
          "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
-         "launches": launches8[1] + loop16["launches"][1], "max_abs_err": max_abs_err_bwd,
+         "launches": launches8[1] + loop16["launches"][1] + front17["launches"][1],
+         "max_abs_err": max_abs_err_bwd,
          "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},
         {"name": att.name, "route": "cuda", "source": att.source, "replaces": att.replaces,
-         "launches": launches11 + loop16["launches"][2], "max_abs_err": err10, "ms": a_ms,
+         "launches": launches11 + loop16["launches"][2] + front17["launches"][2],
+         "max_abs_err": err10, "ms": a_ms,
          "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib}]}))
     print(smi)

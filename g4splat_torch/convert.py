@@ -11,8 +11,9 @@ for `TrainConfig` and `ViewData`, so the port never imports the JAX package.
 convolutions) into the port's (OIHW). `flax_state_dict` turns the flax params of the JAX package's prior networks
 (`MultiViewUNet`, `AutoencoderKL`, `CLIPVision`, `CLIPText`) into the state
 dicts of the port's modules of the same names; `depth_anything_state_dict`
-does the same for `DepthAnythingV2`, whose names follow the official torch
-checkpoint instead.
+does the same for `DepthAnythingV2`, and `mast3r_state_dict` for
+`AsymmetricMASt3R`, whose names follow the reference torch checkpoints
+instead. `chart_params_from` carries the chart-alignment init.
 """
 
 from __future__ import annotations
@@ -180,3 +181,66 @@ def depth_anything_state_dict(params, encoder: str = "vitl") -> Dict[str, torch.
         out.setdefault(f"depth_head.scratch.refinenet4.resConfUnit1.{conv}.bias",
                        torch.zeros(f))
     return out
+
+
+def mast3r_state_dict(params, cfg=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's `MASt3RModel.params` → the port's `AsymmetricMASt3R`
+    state dict (the reference checkpoint's names). The inverse of the JAX
+    package's `convert_torch_mast3r`: ``headK`` becomes
+    ``downstream_headK``; its DPT's ``projects_i`` / ``resize_i`` become
+    ``act_postprocess.i.0`` / ``.1`` (the transposed convolutions flip
+    their taps back), ``layerN_rn`` and ``refinenetN`` go under ``scratch``
+    (``layer_rn.{N-1}`` names the same convolution), and ``output_conv1`` /
+    ``output_conv2_0`` / ``output_conv2_2`` become ``head.0`` / ``.2`` /
+    ``.4``. The parameters the JAX model does not create (`mask_token`,
+    unused, and refinenet4's `resConfUnit1`, created and never called by the
+    reference) are zero-filled."""
+    from g4splat_torch.priors.mast3r import MASt3RConfig
+
+    cfg = cfg or MASt3RConfig()
+    params = dict(params.get("params", params))
+    heads = {k: params.pop(k) for k in ("head1", "head2")}
+    out = flax_state_dict(params)
+    out["mask_token"] = torch.zeros(1, 1, cfg.dec_embed_dim)
+    f = cfg.dpt_features
+    for k, head in heads.items():
+        pre = f"downstream_{k}."
+        out.update({pre + "head_local_features." + n: v for n, v in
+                    flax_state_dict(head["head_local_features"]).items()})
+        dpt = dict(head["dpt"])
+        for i in (0, 1):
+            layer = dpt.pop(f"resize_{i}")
+            w = np.array(layer["kernel"], np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+            out[f"{pre}dpt.act_postprocess.{i}.1.weight"] = torch.from_numpy(
+                np.ascontiguousarray(w))
+            out[f"{pre}dpt.act_postprocess.{i}.1.bias"] = torch.from_numpy(
+                np.array(layer["bias"], np.float32))
+        names = {"resize_3": "act_postprocess.3.1", "output_conv1": "head.0",
+                 "output_conv2_0": "head.2", "output_conv2_2": "head.4"}
+        names.update({f"projects_{i}": f"act_postprocess.{i}.0" for i in range(4)})
+        for name, layer in dpt.items():
+            target = names.get(name, "scratch." + name)
+            out.update({f"{pre}dpt.{target}.{n}": v
+                        for n, v in flax_state_dict(layer).items()})
+        for i in range(4):
+            out[f"{pre}dpt.scratch.layer_rn.{i}.weight"] = out[
+                f"{pre}dpt.scratch.layer{i + 1}_rn.weight"]
+        for conv in ("conv1", "conv2"):
+            out[f"{pre}dpt.scratch.refinenet4.resConfUnit1.{conv}.weight"] = torch.zeros(
+                f, f, 3, 3)
+            out[f"{pre}dpt.scratch.refinenet4.resConfUnit1.{conv}.bias"] = torch.zeros(f)
+    return out
+
+
+def chart_params_from(params, device: DeviceLike = None) -> Dict:
+    """The JAX package's chart-alignment `init_params` tree ({"enc": [...],
+    "denc", "mlp": [{"w", "b"}], "conf_raw"}) → the port's, as float32
+    tensors."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+
+    return {"enc": [f32(g) for g in params["enc"]], "denc": f32(params["denc"]),
+            "mlp": [{"w": f32(l["w"]), "b": f32(l["b"])} for l in params["mlp"]],
+            "conf_raw": f32(params["conf_raw"])}

@@ -2,8 +2,8 @@
 (counterpart of `G4SplatPipeline.evaluate`,
 g4splat_tpu/pipeline/orchestrator.py:1549-1603).
 
-A plain function over (scene, cameras, …): the pipeline's state and artifact
-store are not ported yet. The schema is the JAX package's (the reference's
+A plain function over (scene, cameras, …); `G4SplatPipeline.evaluate` runs
+the same schema over the pipeline's state and artifact store. The schema is the JAX package's (the reference's
 eval/eval.py:67-104): on a held-out split, `test_views_num` and
 `Average-PSNR/SSIM/LPIPS` rounded to 5 decimals; against `gt_images`, the
 train views' unrounded `PSNR/SSIM/LPIPS`; against `gt_mesh`, the keys of
@@ -75,10 +75,15 @@ def evaluate(scene: GaussianScene, cameras: Camera, gt_images=None, gt_mesh=None
                     mesh.vertices, mesh.faces, mesh.vertex_colors)
         results.update(evaluate_mesh(mesh.vertices, mesh.faces, gt_mesh[0], gt_mesh[1]))
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, f"result_iter_{iteration}.json"), "w") as f:
-            json.dump(results, f, indent=2)
-        with open(os.path.join(out_dir, f"result_iter_{iteration}.txt"), "w") as f:
-            for k, v in results.items():
-                f.write(f"{k}: {v}\n")
+        write_results(out_dir, iteration, results)
     return results
+
+
+def write_results(out_dir: str, iteration: int, results: Dict) -> None:
+    """`result_iter_{iteration}.json` and `.txt` under out_dir."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"result_iter_{iteration}.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    with open(os.path.join(out_dir, f"result_iter_{iteration}.txt"), "w") as f:
+        for k, v in results.items():
+            f.write(f"{k}: {v}\n")

@@ -1,28 +1,31 @@
-"""The pipeline's state, artifact store and the stages of one See3D round
-(counterpart of the part of `g4splat_tpu.pipeline.orchestrator` that the
-See3D loop runs).
+"""The end-to-end pipeline: its state, artifact store and stages
+(counterpart of `g4splat_tpu.pipeline.orchestrator`).
 
 `G4SplatPipeline` holds a `PipelineState` on one device (the card unless the
-caller passes ``device="cpu"``) and runs, as methods over it:
+caller passes ``device="cpu"``) and runs, as methods over it, the JAX
+package's `run()` in its order:
 
-    render_chart_views → excavate_planes → refine_plane_depths →
-    train_gaussians → for k in 1..3: see3d_stage(k) →
-    refine_plane_depths(use_anchor_colors=k == 3) → train_gaussians
+    load_inputs → run_sfm → align_charts → render_chart_views →
+    excavate_planes → refine_plane_depths → train_gaussians →
+    for k in 1..n_see3d_stages: see3d_stage(k) →
+    refine_plane_depths(use_anchor_colors=k == 3) → train_gaussians →
+    extract_mesh → evaluate
 
-which is the body of the JAX package's `run()` between chart alignment and
-render_all. The on-disk artifacts keep the reference's layout
-(plane-refine-depths/ file zoo, see3d_render/stage{k}, see3d_cameras.npz,
-point_cloud/iteration_N/point_cloud.ply). Maps stay on the device until they
-are written; PNG, TIFF and NPY writes are encoded on the I/O thread pool.
-The view fan-out over several devices, SfM, chart alignment, resume, the
-CLI, `run()` and the output stages (render_all, mesh, eval as methods) are
-not part of this module: the output stages are the functions of
-`render_all`, `mesh_extraction` and `evaluate`.
+(dense-view mode: dense_view_stage, refine_plane_depths, train_gaussians in
+place of the See3D rounds). Prior networks are injected (`Priors`). The
+on-disk artifacts keep the reference's layout (sfm/sparse/0 COLMAP model,
+points.ply, cameras.json, pointmaps/, charts_data.npz,
+plane-refine-depths/ file zoo, see3d_render/stage{k}, see3d_cameras.npz,
+point_cloud/iteration_N/point_cloud.ply, renders, the mesh, result_iter_N).
+Maps stay on the device until they are written; PNG, TIFF and NPY writes
+are encoded on the I/O thread pool. The view fan-out over several devices,
+resume and the CLI are not part of this module.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -33,9 +36,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from g4splat_torch.core.cameras import Camera, camera_at, stack_cameras
+from g4splat_torch.core.cameras import Camera, camera_at, make_camera, stack_cameras
 from g4splat_torch.core.geometry import depth_to_normal
 from g4splat_torch.device import DeviceLike, resolve_device
+from g4splat_torch.eval.image_metrics import LPIPS, evaluate_images
+from g4splat_torch.eval.mesh_metrics import evaluate_mesh
+from g4splat_torch.io import colmap as colmap_io
 from g4splat_torch.io.images import (
     flush_io,
     save_depth_tiff_async,
@@ -43,21 +49,36 @@ from g4splat_torch.io.images import (
     save_mask_png_async,
     save_npy_async,
 )
-from g4splat_torch.io.ply import save_gaussian_ply, save_point_cloud_ply
+from g4splat_torch.io.ply import save_gaussian_ply, save_mesh_ply, save_point_cloud_ply
 from g4splat_torch.ops.depth_align import depth_linear_align
 from g4splat_torch.ops.rasterize import render
 from g4splat_torch.ops.rasterize_common import RenderConfig
+from g4splat_torch.pipeline import sfm as S
+from g4splat_torch.pipeline.chart_alignment import (
+    ChartAlignConfig,
+    align_charts,
+    save_charts_data,
+)
 from g4splat_torch.pipeline.confidence import (
     anchor_plane_color_harmonize,
     build_visibility_masks,
     compute_confidence_maps,
 )
+from g4splat_torch.pipeline.evaluate import write_results
 from g4splat_torch.pipeline.gaussian_init import (
     init_by_warp_from_depths,
     init_from_manifold_meshes,
     scene_from_init,
 )
-from g4splat_torch.pipeline.mesh_extraction import cameras_spatial_extent
+from g4splat_torch.pipeline.mesh_extraction import (
+    MeshExtractionConfig,
+    cameras_spatial_extent,
+    extract_mesh_adaptive_tsdf,
+    extract_mesh_multires_tsdf,
+    filter_mesh_by_edge_length,
+    keep_largest_clusters,
+    mesh_config_from,
+)
 from g4splat_torch.pipeline.novel_views import (
     ProposalConfig,
     VisibilityGrid,
@@ -73,10 +94,13 @@ from g4splat_torch.pipeline.planes import (
     merge_global_planes,
     refine_depths_with_planes,
 )
+from g4splat_torch.pipeline.render_all import render_camera_batch
+from g4splat_torch.pipeline.retrieval import retrieval_pairs
 from g4splat_torch.pipeline.see3d_stage import run_see3d_inpaint
+from g4splat_torch.priors.mast3r import extract_correspondences
 from g4splat_torch.train.losses import normal_to_curvature
 from g4splat_torch.train.trainer import Trainer, TrainConfig, ViewData
-from g4splat_torch.utils.config import load_config
+from g4splat_torch.utils.config import apply_overrides, load_config
 
 
 @dataclass
@@ -127,7 +151,7 @@ class PipelineConfig:
 class Priors:
     """Injected prior networks (None → the stage degrades gracefully)."""
     depth_model: Optional[object] = None       # DepthAnything
-    mast3r: Optional[object] = None
+    mast3r: Optional[object] = None            # MASt3RModel
     sam_generator: Optional[object] = None     # callable image → masks
     see3d: Optional[object] = None             # See3DPipeline
     see3d_sr: Optional[object] = None          # SR checkpoint, else see3d
@@ -187,6 +211,10 @@ class ArtifactStore:
         d = os.path.join(self.gaussians, split, f"ours_{iteration}", "renders")
         os.makedirs(d, exist_ok=True)
         return d
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _point_ids(depth: torch.Tensor, first: int) -> np.ndarray:
@@ -264,6 +292,220 @@ class G4SplatPipeline:
         st.test_cameras = test_cameras
         w0 = 0.01 if self.cfg.downweight_input_view_color_loss else 1.0
         st.color_weights = torch.full((len(images),), w0, device=self.device)
+
+    def run_sfm(self):
+        """MASt3R-SfM: pairs → pointmaps → correspondences → sparse global
+        alignment → COLMAP writeout."""
+        st = self.state
+        V, H, W = st.images.shape[:3]
+        posed = st.cameras is not None and self.cfg.sfm_config == "posed"
+        with self._timed("sfm"):
+            if posed:
+                # pp → centre, fx == fy.
+                st.images, st.cameras = S.rectify_to_center_pp(st.images, st.cameras)
+            if self.priors.mast3r is None:
+                # Posed mode can bootstrap depths from the mono prior (or a
+                # flat far plane); unposed cannot.
+                assert posed, "unposed SfM requires the MASt3R prior"
+                self._posed_depth_bootstrap()
+                return
+            model = self.priors.mast3r
+            # Exhaustive pairs for sparse view sets, a retrieval shortlist
+            # above 20 views.
+            if V > 20:
+                feats = [_host(model.encode_image(st.images[v:v + 1])[0]) for v in range(V)]
+                pair_ids = retrieval_pairs(feats, exhaustive_threshold=20)
+            else:
+                pair_ids = S.build_pairs_exhaustive(V)
+            if hasattr(model, "symmetric_inference_batch"):
+                outs = model.symmetric_inference_batch(st.images[[i for i, _ in pair_ids]],
+                                                       st.images[[j for _, j in pair_ids]])
+            else:
+                outs = [model.symmetric_inference(st.images[i:i + 1], st.images[j:j + 1])
+                        for i, j in pair_ids]
+            pair_outputs, pairs = {}, []
+            for (i, j), o in zip(pair_ids, outs):
+                pair_outputs[(i, j)] = o
+                xy1, xy2, conf = extract_correspondences(
+                    o[0]["desc"][0], o[2]["desc"][0], o[0]["desc_conf"][0], o[2]["desc_conf"][0])
+                # DUSt3R regression targets (X12: image-i pixels in frame j)
+                # for correspondence-starved pairs.
+                p12 = _host(o[3]["pts3d"][0])
+                c12 = _host(o[3]["conf"][0])
+                hh, ww = c12.shape
+                ys, xs = np.mgrid[:hh, :ww]
+                stride = max(1, int(np.sqrt(hh * ww / 1024)))
+                sl = (slice(None, None, stride), slice(None, None, stride))
+                pairs.append(S.PairData(
+                    i=i, j=j, xy_i=xy1, xy_j=xy2, conf=conf, score=float(conf.sum()),
+                    T_ji=S.relative_pose_from_pair(o[0], o[2], o[3]),
+                    xy_reg=np.stack([xs[sl], ys[sl]], -1).reshape(-1, 2).astype(np.float32),
+                    pts_reg=p12[sl].reshape(-1, 3), conf_reg=c12[sl].reshape(-1)))
+            depths, focals, canon_confs = S.canonical_views_from_pairs(V, pair_outputs,
+                                                                       return_confs=True)
+            del outs, pair_outputs
+            init_w2c = None
+            if posed:
+                init_w2c = _host(st.cameras.w2c)
+                focals = _host(st.cameras.fx)
+            # The schedule from configs/mast3r/{posed,unposed}.yaml.
+            sfm_cfg = apply_overrides(S.SfMConfig(), load_config("mast3r", self.cfg.sfm_config))
+            if not posed:
+                # Without provided cameras poses and intrinsics are optimised
+                # whatever the YAML says.
+                sfm_cfg = dataclasses.replace(sfm_cfg, fix_poses=False,
+                                              optimize_intrinsics=True)
+            res = S.sparse_global_alignment(depths, focals, pairs, sfm_cfg, init_w2c=init_w2c,
+                                            device=self.device)
+            st.cameras = stack_cameras([
+                make_camera(res.w2c[v], res.focals[v], res.focals[v], (W - 1) / 2, (H - 1) / 2,
+                            W, H, device=self.device) for v in range(V)])
+            st.prior_depths = self._tensor(res.depthmaps)
+            st.depths = st.prior_depths.clone()
+            # clean_depth: zero the confidence of cross-view floaters so the
+            # COLMAP writeout drops them.
+            confs = S.clean_depth_confidences(res.w2c, res.focals, res.depthmaps, canon_confs)
+            self._write_colmap(res, confs=confs)
+
+    def _posed_depth_bootstrap(self):
+        """Posed mode without MASt3R: depths from the DA2 mono prior scaled
+        to the camera extent (or a flat plane at the extent), then the SfM
+        writeout."""
+        st = self.state
+        V, H, W = st.images.shape[:3]
+        extent = max(cameras_spatial_extent(st.cameras), 1e-3)
+        if self.priors.depth_model is not None:
+            d = 1.0 / torch.clamp(self._mono_disparity(st.images), min=1e-6)
+            med = torch.clamp(torch.median(d.reshape(V, -1), dim=1).values, min=1e-9)
+            depths = d * (extent / med)[:, None, None]
+        else:
+            depths = torch.full((V, H, W), extent, device=self.device)
+        st.prior_depths = depths.to(torch.float32)
+        st.depths = st.prior_depths.clone()
+        self._write_colmap(S.SfMResult(w2c=_host(st.cameras.w2c), focals=_host(st.cameras.fx),
+                                       depthmaps=_host(st.depths), losses=[]))
+
+    def _write_colmap(self, res, confs: Optional[np.ndarray] = None):
+        """The COLMAP writeout, points.ply, cameras.json and the per-view
+        JSON pointmaps. ``confs`` (V, H, W), when given, gates which
+        backprojected points are written (the reference's output_conf_thr
+        0.1 over the cleaned confidences)."""
+        st = self.state
+        V, H, W = st.images.shape[:3]
+        conf_thr = 0.1
+        cams = {v + 1: colmap_io.ColmapCamera(
+            v + 1, "PINHOLE", W, H,
+            np.array([res.focals[v], res.focals[v], (W - 1) / 2, (H - 1) / 2]))
+            for v in range(V)}
+        images = {}
+        for v in range(V):
+            q = colmap_io.rotmat2qvec(res.w2c[v][:3, :3])
+            images[v + 1] = colmap_io.ColmapImage(v + 1, q, res.w2c[v][:3, 3], v + 1,
+                                                  f"frame_{v:06d}.png")
+        host_images = _host(st.images)
+        world = [_host(camera_at(st.cameras, v).backproject(self._tensor(res.depthmaps[v])))
+                 for v in range(V)]
+        # Sparse cloud: subsampled backprojected canonical points.
+        pts = {}
+        pid = 1
+        all_pts, all_cols = [], []
+        for v in range(V):
+            step = 8
+            sel = world[v][::step, ::step].reshape(-1, 3)
+            col = host_images[v][::step, ::step].reshape(-1, 3)
+            if confs is not None:
+                keep = confs[v][::step, ::step].reshape(-1) >= conf_thr
+                sel, col = sel[keep], col[keep]
+            all_pts.append(sel)
+            all_cols.append(col)
+            for p, c in zip(sel[::4], col[::4]):
+                pts[pid] = colmap_io.ColmapPoint3D(
+                    pid, p, (c * 255).astype(np.uint8), 0.5,
+                    np.array([v + 1], np.int32), np.array([0], np.int32))
+                pid += 1
+        st.sfm_points = np.concatenate(all_pts)
+        st.sfm_point_colors = np.concatenate(all_cols)
+        colmap_io.write_model(cams, images, pts, self.store.sparse)
+        sfm_root = os.path.dirname(os.path.dirname(self.store.sparse))
+        save_point_cloud_ply(os.path.join(sfm_root, "points.ply"), st.sfm_points,
+                             st.sfm_point_colors)
+        c2w = [np.linalg.inv(res.w2c[v]).tolist() for v in range(V)]
+        with open(os.path.join(sfm_root, "cameras.json"), "w") as f:
+            json.dump({"filepaths": [f"frame_{v:06d}.png" for v in range(V)],
+                       "focals": [float(res.focals[v]) for v in range(V)],
+                       "cams2world": c2w}, f)
+        # pointmaps/<name>.json: per-view canonical points and confidences
+        # (rgb omitted, as the reference's use_all_images branch does).
+        pm_dir = os.path.join(sfm_root, "pointmaps")
+        os.makedirs(pm_dir, exist_ok=True)
+        for v in range(V):
+            with open(os.path.join(pm_dir, f"frame_{v:06d}.json"), "w") as f:
+                json.dump({
+                    "rgb": None,
+                    "points": world[v].reshape(-1, 3).tolist(),
+                    "confs": (confs[v].reshape(-1) if confs is not None
+                              else np.ones(H * W, np.float32)).tolist(),
+                }, f)
+        # Posed mode: all-sparse/0 (every calibrated view, original
+        # intrinsics) and dense-view-sparse/0 (the dense_view.json subset).
+        if self.cfg.sfm_config == "posed" and self.cfg.source_path:
+            src_sparse = os.path.join(self.cfg.source_path, "sparse", "0")
+            if os.path.isdir(src_sparse):
+                try:
+                    acams, aimgs, _ = colmap_io.read_model(src_sparse)
+                except Exception:
+                    acams = aimgs = None
+                if acams:
+                    all_dir = os.path.join(sfm_root, "all-sparse", "0")
+                    os.makedirs(all_dir, exist_ok=True)
+                    colmap_io.write_model(acams, aimgs, {}, all_dir)
+                    dv_json = os.path.join(self.cfg.source_path, "dense_view.json")
+                    if os.path.exists(dv_json):
+                        with open(dv_json) as f:
+                            dense_ids = json.load(f)["train"]
+                        img_items = sorted(aimgs.items())
+                        d_cams, d_imgs = {}, {}
+                        for k, idx in enumerate(dense_ids):
+                            _, im = img_items[idx]
+                            cam_src = acams[im.camera_id]
+                            d_cams[k + 1] = colmap_io.ColmapCamera(
+                                k + 1, cam_src.model, cam_src.width, cam_src.height,
+                                cam_src.params)
+                            d_imgs[k + 1] = colmap_io.ColmapImage(k + 1, im.qvec, im.tvec, k + 1,
+                                                                  im.name)
+                        dv_dir = os.path.join(sfm_root, "dense-view-sparse", "0")
+                        os.makedirs(dv_dir, exist_ok=True)
+                        colmap_io.write_model(d_cams, d_imgs, {}, dv_dir)
+
+    def align_charts(self):
+        """Chart alignment: DA2 mono depth affine-aligned to the SfM depths,
+        then the deformation-field refinement; writes charts_data.npz."""
+        st = self.state
+        with self._timed("align_charts"):
+            V = st.images.shape[0]
+            disps = (self._mono_disparity(st.images)
+                     if self.priors.depth_model is not None else None)
+            init_depths = []
+            for v in range(V):
+                ref = st.prior_depths[v]
+                if disps is not None:
+                    aligned, _, _ = depth_linear_align(disps[v], ref, ref > 0)
+                    init_depths.append(aligned)
+                else:
+                    init_depths.append(ref)
+            extent = max(cameras_spatial_extent(st.cameras), 1e-3)
+            # The schedule from configs/charts_alignment/; an unknown name
+            # falls back to default.
+            try:
+                ycfg = load_config("charts_alignment", self.cfg.alignment_config)
+            except FileNotFoundError:
+                ycfg = load_config("charts_alignment", "default")
+            res = align_charts(st.cameras, torch.stack(init_depths), st.prior_depths,
+                               extent=extent, cfg=apply_overrides(ChartAlignConfig(), ycfg))
+            st.depths = res.depths
+            st.prior_depths = res.prior_depths
+            st.confidences = res.confs
+            save_charts_data(self.store.charts, res, st.scale_factor)
 
     def render_chart_views(self):
         """Chart-view file zoo: depths, normals, curvatures, covisibility
@@ -656,3 +898,161 @@ class G4SplatPipeline:
                 for k in keys:
                     maps[k].append(out[k])
         return {k: torch.stack(v) for k, v in maps.items()}
+
+    def dense_view_stage(self, dense_cameras: Camera):
+        """Dense-view mode: render every dense view from the current model,
+        lift mono depth aligned to the rendered depth outside the visible
+        part (the rendered depth otherwise), replace the training set with
+        the dense views and rebuild the plane inputs. The caller then runs
+        refine_plane_depths and train_gaussians (no See3D)."""
+        st = self.state
+        with self._timed("dense_view_stage"):
+            dense_cameras = dense_cameras.to(self.device)
+            n = dense_cameras.w2c.shape[0]
+            maps = self._render_maps_batch(dense_cameras, n,
+                                           keys=("render", "rend_alpha", "surf_depth"),
+                                           depth_ratio=0.5)
+            imgs, depths, alphas = maps["render"], maps["surf_depth"].clone(), maps["rend_alpha"]
+            if self.priors.depth_model is not None:
+                disps = self._mono_disparity(imgs)
+                for i in range(n):
+                    vis = alphas[i] > 0.5
+                    lifted, _, _ = depth_linear_align(disps[i], depths[i], vis)
+                    depths[i] = torch.where(vis, depths[i], lifted)
+            st.images = imgs
+            st.depths = depths
+            st.prior_depths = depths.clone()
+            st.cameras = dense_cameras
+            st.input_view_num = n
+            w0 = 0.01 if self.cfg.downweight_input_view_color_loss else 1.0
+            st.color_weights = torch.full((n,), w0, device=self.device)
+            st.normals, st.curvs = self._normals_curvs(st.cameras, st.depths)
+            st.confidences = torch.ones_like(st.depths)
+            self.render_chart_views_light()
+            self.excavate_planes()
+
+    def _render_camera_batch(self, cameras: Camera, n_views: int, out_dir: str) -> torch.Tensor:
+        """The first n_views cameras' renders, written to out_dir/{v:05d}.png
+        (one B1 launch per view on the cuda backend)."""
+        return render_camera_batch(self.state.scene, cameras, out_dir, self.cfg.render_backend,
+                                   n_views=n_views)
+
+    def render_all(self, iteration: Optional[int] = None, include_test: bool = True):
+        """Render the train views, and the held-out test views when a split
+        is loaded, into `{split}/ours_{it}/renders`."""
+        st = self.state
+        it = iteration or self.cfg.train_iterations
+        with self._timed("render_all"):
+            renders = self._render_camera_batch(st.cameras, st.input_view_num,
+                                                self.store.renders_dir("train", it))
+            if include_test and st.test_cameras is not None:
+                self._render_camera_batch(st.test_cameras, st.test_cameras.w2c.shape[0],
+                                          self.store.renders_dir("test", it))
+        return renders
+
+    def extract_mesh(self):
+        """The adaptive tetra mesh, or the multires TSDF mesh with its
+        largest clusters kept, from the YAML config tree
+        (configs/adaptive_tetrahedralization, configs/multiresolution_tsdf)."""
+        st = self.state
+        cfg = self.cfg
+        with self._timed("extract_mesh"):
+            if cfg.use_multires_tsdf:
+                tcfg = load_config("multiresolution_tsdf", cfg.tsdf_config)
+                mesh = extract_mesh_multires_tsdf(
+                    st.scene, st.cameras,
+                    factors=tuple(tcfg.get("multires_factors", cfg.multires_factors)),
+                    resolution=cfg.tsdf_resolution, mesh_res=int(tcfg.get("mesh_res", 1024)),
+                    depth_ratio=float(tcfg.get("depth_ratio", 1.0)), backend=cfg.render_backend)
+                mesh = keep_largest_clusters(mesh,
+                                             cluster_to_keep=int(tcfg.get("num_cluster", 50)))
+            else:
+                mcfg = mesh_config_from(
+                    load_config("adaptive_tetrahedralization", cfg.tetra_config),
+                    base=MeshExtractionConfig(downsample_ratio=cfg.tetra_downsample_ratio,
+                                              backend=cfg.render_backend,
+                                              use_interpolated_views=cfg.use_interpolated_views))
+                mesh = extract_mesh_adaptive_tsdf(st.scene, st.cameras, mcfg)
+            if cfg.use_mesh_filter:
+                mesh = filter_mesh_by_edge_length(mesh)
+            save_mesh_ply(os.path.join(
+                self.store.meshes,
+                f"tetra_mesh_binary_search_7_iter_{cfg.train_iterations}.ply"),
+                mesh.vertices, mesh.faces, mesh.vertex_colors)
+            return mesh
+
+    def evaluate(self, gt_images=None, gt_mesh=None, iteration: Optional[int] = None,
+                 lpips_model=None) -> Dict:
+        """PSNR/SSIM/LPIPS and mesh metrics → result_iter_{it}.json/.txt, in
+        the JAX package's schema: on the held-out split (`Average-*`,
+        `test_views_num`) when one is loaded, on the train views against
+        `gt_images`, and the mesh (extracted again) against `gt_mesh`
+        (vertices, faces). Without LPIPS weights the VGG is a random init,
+        flagged `LPIPS-uncalibrated`."""
+        st = self.state
+        it = iteration or self.cfg.train_iterations
+        results: Dict = {}
+        with self._timed("evaluate"):
+            lp = (lpips_model if lpips_model is not None
+                  else self.priors.lpips or LPIPS(device=self.device))
+            if not getattr(lp, "calibrated", True):
+                results["LPIPS-uncalibrated"] = True
+            if st.test_images is not None and st.test_cameras is not None:
+                n_test = len(st.test_images)
+                test_renders = self._render_camera_batch(st.test_cameras, n_test,
+                                                         self.store.renders_dir("test", it))
+                m = evaluate_images(test_renders, st.test_images, lpips_model=lp)
+                results["test_views_num"] = n_test
+                results["Average-PSNR"] = round(m["PSNR"], 5)
+                results["Average-SSIM"] = round(m["SSIM"], 5)
+                results["Average-LPIPS"] = round(m["LPIPS"], 5)
+            if gt_images is not None:
+                renders = self.render_all(it, include_test=False)
+                n = min(len(renders), len(gt_images))
+                results.update(evaluate_images(renders[:n], self._tensor(gt_images)[:n],
+                                               lpips_model=lp))
+            if gt_mesh is not None:
+                mesh = self.extract_mesh()
+                results.update(evaluate_mesh(mesh.vertices, mesh.faces, _host(gt_mesh[0]),
+                                             _host(gt_mesh[1])))
+        write_results(self.cfg.output_path, it, results)
+        return results
+
+    # ------------------------------------------------------------------ run
+    def run(self, images, cameras: Optional[Camera] = None, gt_images=None, gt_mesh=None,
+            dense_cameras: Optional[Camera] = None, test_images=None,
+            test_cameras: Optional[Camera] = None) -> Dict:
+        """The whole pipeline, from posed (or unposed) images to the
+        results, in the JAX package's order."""
+        t0 = time.time()
+        self.load_inputs(images, cameras, test_images=test_images, test_cameras=test_cameras)
+        self.run_sfm()
+        self.align_charts()
+        self.render_chart_views()
+        self.excavate_planes()
+        self.refine_plane_depths()
+        self.train_gaussians()
+        if self.cfg.use_dense_view:
+            assert dense_cameras is not None, "dense-view mode needs cameras"
+            self.dense_view_stage(dense_cameras)
+            self.refine_plane_depths()
+            pcd = os.path.join(self.store.gaussians, "point_cloud")
+            if os.path.exists(pcd):
+                os.rename(pcd, pcd + "-chart-views")
+            self.train_gaussians()
+        else:
+            for stage in range(1, self.cfg.n_see3d_stages + 1):
+                self.see3d_stage(stage)
+                # Stage 3 takes the anchor-restricted colour harmonisation.
+                self.refine_plane_depths(use_anchor_colors=(stage == 3))
+                # Snapshot: point_cloud → point_cloud-{ori,s1,s2}.
+                pcd = os.path.join(self.store.gaussians, "point_cloud")
+                if os.path.exists(pcd):
+                    tag = {1: "ori", 2: "s1", 3: "s2"}.get(stage, f"s{stage - 1}")
+                    os.rename(pcd, pcd + f"-{tag}")
+                self.train_gaussians()
+        self.extract_mesh()
+        results = self.evaluate(gt_images=gt_images, gt_mesh=gt_mesh)
+        self.timings["total"] = time.time() - t0
+        print(f"[pipeline] total: {self.timings['total']:.1f}s", flush=True)
+        return results

@@ -2,8 +2,8 @@
 of `G4SplatPipeline._render_camera_batch` and of `render_all`,
 g4splat_tpu/pipeline/orchestrator.py:1413-1483).
 
-Plain functions over (scene, cameras): the pipeline's state and artifact
-store are not ported yet. Each view is one `render` call with the default
+Plain functions over (scene, cameras); `G4SplatPipeline.render_all` calls
+them over the pipeline's state and artifact store. Each view is one `render` call with the default
 background and no distortion (one B1 launch on the cuda backend); with
 `out_dir` the renders are written as `{v:05d}.png`, encoded on the I/O
 thread pool while the next view renders. The fan-out over several devices

@@ -1,17 +1,18 @@
-"""The named YAML configs under `configs/` (counterpart of
-`g4splat_tpu.utils.config.load_config`, for the flat files the ported
-stages read).
+"""The named YAML configs under `configs/` and their overlay onto the
+stages' dataclasses (counterpart of `g4splat_tpu.utils.config.load_config`
+and `apply_overrides`).
 
-The files the port reads (`free_gaussians_refinement/*`) are flat
-``key: value`` mappings, and PyYAML is not a dependency of the port, so
-`load_config` parses that subset itself: one ``key: value`` per line, ``#``
-comments, and values that are integers, floats, ``true`` / ``false``,
-``null`` / ``~`` or plain strings (quotes stripped). A nested or
-multi-line value is refused rather than misread.
+Every file under `configs/` is a flat ``key: value`` mapping, and PyYAML is
+not a dependency of the port, so `load_config` parses that subset itself:
+one ``key: value`` per line, ``#`` comments, and values that are integers,
+floats, ``true`` / ``false``, ``null`` / ``~``, plain strings (quotes
+stripped) or one-line flow lists of such scalars (``[2, 8, 16]``). A nested,
+multi-line or mapping value is refused rather than misread.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Any, Dict
@@ -37,6 +38,14 @@ def _scalar(text: str) -> Any:
     return text
 
 
+def _flow_list(text: str, n: int, line: str) -> list:
+    """``[a, b, c]`` of scalars on one line."""
+    body = text[1:-1].strip() if text.endswith("]") else None
+    if body is None or any(c in body for c in "[]{}'\""):
+        raise ValueError(f"line {n}: only one-line lists of plain scalars are read: {line!r}")
+    return [_scalar(item.strip()) for item in body.split(",")] if body else []
+
+
 def parse_flat_yaml(text: str) -> Dict[str, Any]:
     """A flat ``key: value`` YAML document → dict."""
     out: Dict[str, Any] = {}
@@ -48,7 +57,10 @@ def parse_flat_yaml(text: str) -> Dict[str, Any]:
             raise ValueError(f"line {n}: only flat 'key: value' lines are read: {line!r}")
         key, value = body.split(":", 1)
         value = value.strip()
-        if value[:1] in ("[", "{", "|", ">", "&", "*"):
+        if value[:1] == "[":
+            out[key.strip()] = _flow_list(value, n, line)
+            continue
+        if value[:1] in ("{", "|", ">", "&", "*"):
             raise ValueError(f"line {n}: only scalar values are read: {line!r}")
         out[key.strip()] = _scalar(value)
     return out
@@ -58,3 +70,13 @@ def load_config(group: str, name: str = "default") -> Dict[str, Any]:
     """`configs/{group}/{name}.yaml` as a dict (FileNotFoundError if absent)."""
     with open(os.path.join(CONFIG_ROOT, group, f"{name}.yaml")) as f:
         return parse_flat_yaml(f.read())
+
+
+def apply_overrides(obj, overrides: Dict[str, Any], strict: bool = False):
+    """A copy of the dataclass `obj` with the YAML overrides applied; keys
+    that are not fields are ignored unless `strict`."""
+    fields = {f.name for f in dataclasses.fields(obj)}
+    unknown = set(overrides) - fields
+    if strict and unknown:
+        raise KeyError(f"unknown config keys: {sorted(unknown)}")
+    return dataclasses.replace(obj, **{k: v for k, v in overrides.items() if k in fields})

@@ -1,5 +1,6 @@
 """The port stands alone: importing g4splat_torch (every submodule) or
-chip_smoke.py pulls in no JAX and nothing of g4splat_tpu, and no source file
+chip_smoke.py pulls in no JAX (nor flax, optax or PyYAML, which the card's
+machine lacks) and nothing of g4splat_tpu, and no source file
 of the port, nor the timing scripts (scripts/time_*.py), imports
 either. chip_smoke.py refuses to run without a card."""
 
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "g4splat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "g4splat_tpu")
 
 PROBE = """
 import importlib, importlib.util, pkgutil, sys

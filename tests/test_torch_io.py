@@ -77,15 +77,15 @@ def test_point_cloud_ply(tmp_path, with_colors, with_normals):
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(CONFIG_ROOT, "*", "*.yaml"))))
 def test_flat_yaml_configs(path):
-    """Every flat config reads as yaml.safe_load reads it; the others (with
-    lists) are refused, not misread."""
+    """Every config reads as yaml.safe_load reads it (flat keys, scalars and
+    one-line lists of scalars); a nested or mapping value is refused, not
+    misread."""
     text = open(path).read()
     want = yaml.safe_load(text) or {}
-    if any(isinstance(v, (list, dict)) for v in want.values()):
+    assert parse_flat_yaml(text) == want
+    for bad in ("a: {b: 1}", "a:\n  - 1", "a: [[1, 2]]", "a: |\n  text"):
         with pytest.raises(ValueError):
-            parse_flat_yaml(text)
-    else:
-        assert parse_flat_yaml(text) == want
+            parse_flat_yaml(text + "\n" + bad)
 
 
 def test_default_schedule():
