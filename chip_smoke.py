@@ -1,5 +1,5 @@
-"""Drive the g4splat_torch render, training, See3D inpainting, output and
-See3D-loop paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
+"""Drive the g4splat_torch render, training, See3D inpainting, output,
+See3D-loop, run() and command-line paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
 rasterizer, B2 backward rasterizer, B3 attention) against the kernels'
 plain PyTorch versions.
 
@@ -111,6 +111,38 @@ Phases (any failure exits non-zero and prints no result line):
      launches 32 per UNet call per stage, B2 one per training step. Prints
      each method's host seconds and launches, per stage the candidates,
      selected and views, DA2 ms per call, launches and peak memory.
+ 17. G4SplatPipeline.run() from 10 posed photos of box_room(MESH_DENSITY)
+     (views 8 and 9 held out): MASt3R at full width (its descriptors and
+     pointmaps keyed on the room's surface before the geometry stages),
+     posed SfM, charts, one See3D stage, the multires mesh, eval; SAM ViT-H
+     (SAMConfig(), seeded) proposes every excavate_planes' masks. Gates:
+     (i) MASt3R card vs CPU and the matcher vs its unblocked plain version;
+     (ii)-(iii) the posed cameras kept, SfM depths, the COLMAP trees;
+     (iv) charts; (v) finite training, B2 and B3 launches; (vi) the mesh and
+     the result keys; (vii) the snapshots; (viii) SAM's embedding, mask
+     logits and IoU in fp32 vs float64 of the same module (SAM_REL);
+     (ix) SAM's NMS on the card keeps the JAX package's loop's list on every
+     view of the first excavate_planes; (x) every mask (H, W) bool, at most
+     256 kept per view, plane masks written for every view; (xi) after run(),
+     excavate_planes once more over its views with SAM's decoder replaced by
+     seeded disc logits at its output shape (256 prompts, 4 x 256² logits):
+     on two views the masks equal the JAX package's selection and NMS loop
+     on the same logits, and on those and the view with the most instances
+     PlaneExcavator's instances on the card equal those on the CPU. Prints each method's seconds and launches, MASt3R, SfM and
+     chart times, SAM's encode, decode and selection + NMS times, candidates
+     and kept per view, the disc run's seconds and counts, and peak memory.
+ 18. `python -m g4splat_torch.cli` (run in this process by runpy, so that
+     the kernels' counters see it) on a source directory (10 photos
+     rendered by B1 as 8-bit PNGs, sparse/0, split-8views.json) and an npz
+     zoo holding only sam.npz, written from phase 17's SAM by
+     convert_torch_sam (MASt3R, DA2 and See3D absent: posed mode bootstraps
+     its depths, each See3D stage keeps its renders). Gates: (i) exit code
+     0; (ii) the CLI's build_priors gives SAM the writer's weights bit for
+     bit and no other prior; (iii) the split was read (views 0-7 posed, 8
+     and 9 rendered by evaluate); (iv) the result keys; (v) the snapshots,
+     the mesh and the plane masks; (vi) B1 and B2 launched by the CLI's
+     run (B2 once per training step), B3 not at all. Prints the CLI's
+     output and launches.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
@@ -270,6 +302,30 @@ FRONT_DENSE = [0, 2, 4, 6]
 # Gate (i): MASt3R on the card vs on the CPU, and the matching crop (h, w).
 MAST3R_REL = 1e-3
 MATCH_CROP = (48, 64)
+# Phase 17's SAM: SAMConfig() on seeded weights at the production prompting
+# (256 prompts in batches of 64, stability 0.85, NMS IoU 0.8, the smallest
+# mask). Gate (viii): fp32 vs float64 of the same module on the card within
+# SAM_REL * max|float64|.
+SAM_REL = 1e-3
+# Gate (xi): SAM's decoder replaced by seeded disc logits at its output shape
+# (per prompt four discs about the prompt, radii DISC_STEP * 1..5 px at 256²,
+# slopes 0.3 or 4, so some fail the stability test and areas tie), the masks
+# checked on the first DISC_REF_VIEWS views; PlaneExcavator's instances on the
+# card vs on the CPU within PIXEL_SHARE of the pixels (k-means' Lloyd sums run
+# on each device in its own order), on those views, on the one with the most
+# instances, and on view 0's masks over the box room's normals rendered by B1,
+# which keeps instances in every run.
+DISC_STEP = 8
+DISC_REF_VIEWS = 2
+PIXEL_SHARE = 1e-3
+# Phase 18: python -m g4splat_torch.cli on CLI_VIEWS photos of
+# box_room(MESH_DENSITY) rendered by B1, split-8views.json holding the last
+# two out, a zoo with sam.npz alone; the cuts (iterations, alignment config,
+# work size) are for time.
+CLI_VIEWS = (10, 512, 384)
+CLI_ARGS = ["--sfm_config", "posed", "--use_view_config", "--config_view_num", "8",
+            "--iterations", "35", "--use_multires_tsdf", "--alignment_config", "fast",
+            "--work_size", "256"]
 RESULT_KEYS = EVAL_KEYS[:5] + ["Acc", "Comp", "Chamfer-L1", "Prec", "Recal", "F-score",
                                "Normal-Acc", "Normal-Comp", "Normal-Consistency"]
 # fp32 operations of one (point, view) step of ops/tsdf.integrate_views in the
@@ -1768,6 +1824,7 @@ def front_end_phase():
     from g4splat_torch.ops.rasterize import render
     from g4splat_torch.pipeline import orchestrator as orch
     from g4splat_torch.pipeline import sfm as S
+    from g4splat_torch.priors import sam as SAM_
     from g4splat_torch.priors.depth_anything import DepthAnything
     from g4splat_torch.priors.mast3r import (MASt3RConfig, MASt3RModel,
                                              extract_correspondences, reciprocal_nn_matches)
@@ -1784,6 +1841,7 @@ def front_end_phase():
     with torch.no_grad():
         maps = [render(camera_at(cams, v), scene, backend="cuda") for v in range(n_views)]
         images = torch.stack([r["render"].clamp(0, 1) for r in maps])
+        room_normals = maps[0]["rend_normal"].clone()   # gate (xi)'s fixed view
     print(f"  box_room({MESH_DENSITY}): {scene.capacity} splats and its GT mesh "
           f"({len(gt_mesh[1])} faces); {n_views} photos rendered by B1 from "
           f"inward_cameras({n_views}, {w}, {h}), no depth passed on; views {FRONT_EVAL} "
@@ -1844,11 +1902,19 @@ def front_end_phase():
     empty = [int((~m).sum()) for m in hit]
     del scene, maps, pts
     priors.mast3r = model
+    sam_pred = SAM_.SAMPredictor(SAM_.SAMConfig(), seed=0, device=DEVICE)
+    priors.sam_generator = SAM_.sam_mask_generator(sam_pred)
+    scfg = sam_pred.cfg
     print(f"  MASt3R {mcfg.enc_embed_dim}/{mcfg.enc_depth} encoder, {mcfg.dec_embed_dim}/"
           f"{mcfg.dec_depth} decoders: {sum(p.numel() for p in model.model.parameters()) / 1e6:.1f}M "
           f"parameters, seeded random weights; DepthAnything({LOOP_DA2!r}); See3D DDIM "
-          f"{SEE3D_SHAPE[3] + 1} timesteps; sam_generator None; descriptors and pointmaps "
-          f"keyed on the surface point (pixels on no surface per view: {empty})")
+          f"{SEE3D_SHAPE[3] + 1} timesteps; descriptors and pointmaps keyed on the surface "
+          f"point (pixels on no surface per view: {empty})")
+    print(f"  SAM ViT-H {scfg.encoder_dim}/{scfg.encoder_depth}/{scfg.encoder_heads} heads, "
+          f"window {scfg.window_size}, {scfg.img_size} px: "
+          f"{sum(p.numel() for p in sam_pred.model.parameters()) / 1e6:.1f}M parameters, "
+          f"seeded random weights; 256 prompts in batches of 64, stability 0.85, NMS 0.8, "
+          f"the smallest mask")
     n_calls = len(priors.see3d.sampler.timesteps)
     per_call_b3 = 2 * priors.see3d.unet.cfg.n_transformer_blocks()
 
@@ -1909,6 +1975,51 @@ def front_end_phase():
         losses.append(m["loss"])
         return m
 
+    # SAM: encode ms per slab, decode ms per prompt batch, selection + NMS ms,
+    # candidates and kept per view; on the first excavate_planes, NMS against
+    # the JAX package's sequential loop (gate ix).
+    sam_log = {"encode_ms": [], "decode_ms": [], "view_ms": [], "sel_ms": [], "calls": []}
+    enc, dec, sel_fn, nms_fn = (sam_pred._encode, sam_pred._decode, SAM_.select_candidates,
+                                SAM_.nms_masks)
+    batch_fn = priors.sam_generator.batch
+
+    def sam_timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sam_log[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def nms_spy(masks, areas, thr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = nms_fn(masks, areas, thr)
+        torch.cuda.synchronize()
+        call = sam_log["calls"][-1]
+        sam_log["view_ms"].append(sum(sam_log["sel_ms"]) + (time.perf_counter() - t0) * 1e3)
+        sam_log["sel_ms"].clear()
+        call["cands"].append(len(areas))
+        if len(sam_log["calls"]) == 1:
+            call["nms_equal"].append(nms_loop(masks.cpu().numpy(), thr) == kept)
+        return kept
+
+    def batch_spy(images):
+        call = {"views": len(images), "cands": [], "nms_equal": []}
+        sam_log["calls"].append(call)
+        out = batch_fn(images)
+        H, W = images.shape[1:3]
+        call["kept"] = [len(v) for v in out]
+        call["masks_ok"] = len(out) == len(images) and all(
+            m.shape == (H, W) and m.dtype == bool for v in out for m in v)
+        return out
+
+    sam_pred._encode, sam_pred._decode = (sam_timed(enc, "encode_ms"),
+                                          sam_timed(dec, "decode_ms"))
+    SAM_.select_candidates, SAM_.nms_masks = sam_timed(sel_fn, "sel_ms"), nms_spy
+    priors.sam_generator.batch = batch_spy
     model.infer_pair, model.symmetric_inference_batch = timed_infer, keyed_batch
     orch.extract_correspondences, orch.align_charts = ext_spy, ac_spy
     S.rectify_to_center_pp, S.sparse_global_alignment = rect_spy, sga_spy
@@ -1917,15 +2028,7 @@ def front_end_phase():
     try:
         with tempfile.TemporaryDirectory() as tmp:
             src, out = os.path.join(tmp, "source"), os.path.join(tmp, "out")
-            ccams, cimgs = {}, {}
-            for v in range(n_views):
-                c = camera_at(cams, v)
-                w2c = c.w2c.cpu().numpy().astype(np.float64)
-                ccams[v + 1] = colmap_io.ColmapCamera(v + 1, "PINHOLE", w, h, np.array(
-                    [float(c.fx), float(c.fy), float(c.cx), float(c.cy)]))
-                cimgs[v + 1] = colmap_io.ColmapImage(v + 1, colmap_io.rotmat2qvec(w2c[:3, :3]),
-                                                     w2c[:3, 3], v + 1, f"frame_{v:06d}.png")
-            colmap_io.write_model(ccams, cimgs, {}, os.path.join(src, "sparse", "0"))
+            _, cimgs = source_model(src, cams)
             with open(os.path.join(src, "dense_view.json"), "w") as f:
                 json.dump({"train": FRONT_DENSE}, f)
             pipe = orch.G4SplatPipeline(orch.PipelineConfig(
@@ -2016,13 +2119,43 @@ def front_end_phase():
                       f"({float(step_losses[0]):.4f} -> {float(step_losses[-1]):.4f}); B2 "
                       f"{delta[1]} launches ({LOOP_ITERATIONS})")
 
+            def after_planes(delta, n_losses):
+                call = sam_log["calls"][-1]
+                n = len(st.images)
+                files = all(os.path.exists(os.path.join(
+                    pipe.store.plane_root, f"plane_mask_frame{v:06d}.npy")) for v in range(n))
+                kept = call["kept"]
+                check(call["masks_ok"] and call["views"] == n and max(kept) <= 256 and files,
+                      f"(x) excavate_planes over {n} views: every SAM mask ({h}, {w}) bool; "
+                      f"candidates per view min {min(call['cands'])}, median "
+                      f"{np.median(call['cands']):.1f}, max {max(call['cands'])}; kept min "
+                      f"{min(kept)}, median {np.median(kept):.1f}, max {max(kept)} (<= 256); "
+                      f"plane_mask_frame*.npy for every view")
+                if len(sam_log["calls"]) == 1:
+                    eq = call["nms_equal"]
+                    # And on 256 seeded discs at SAM's mask size, areas tied.
+                    rng = np.random.default_rng(11)
+                    yy, xx = np.mgrid[0:256, 0:256]
+                    discs = np.stack([(yy - cy) ** 2 + (xx - cx) ** 2 < r * r for cy, cx, r in zip(
+                        *rng.integers(0, 256, (2, 256)), rng.choice([12, 20, 40], 256))])
+                    areas = [int(d.sum()) for d in discs]
+                    kept = nms_fn(torch.from_numpy(discs).to(DEVICE), areas, 0.8)
+                    same = kept == nms_loop(discs, 0.8)
+                    check(len(eq) == n and all(eq) and same,
+                          f"(ix) NMS on the card (one fp32 product of the candidates, the greedy "
+                          f"pass on the host) keeps the JAX package's sequential loop's list on "
+                          f"every view of the first excavate_planes ({sum(eq)} of {n}) and on "
+                          f"256 seeded discs at 256x256 ({len(set(areas))} distinct areas, "
+                          f"{len(kept)} kept)")
+
             def after_see3d(delta, n_losses):
                 check(delta[2] == per_call_b3 * n_calls,
                       f"(v) see3d_stage launched B3 {delta[2]} times ({per_call_b3} per UNet "
                       f"call x {n_calls} calls)")
 
             gates = {"run_sfm": lambda *a: after_sfm(), "align_charts": lambda *a: after_charts(),
-                     "train_gaussians": after_train, "see3d_stage": after_see3d}
+                     "train_gaussians": after_train, "see3d_stage": after_see3d,
+                     "excavate_planes": after_planes}
 
             def instrument(name):
                 fn = getattr(pipe, name)
@@ -2085,11 +2218,20 @@ def front_end_phase():
                   f"see3d_render/stage1 and the mesh")
             timing_log = list(pipe.timing_log)
             pair = st.images[0:1], st.images[1:2]
+            sam_pred._encode, sam_pred._decode = enc, dec
+            SAM_.select_candidates, SAM_.nms_masks = sel_fn, nms_fn
+            priors.sam_generator.batch = batch_fn
+            discs = sam_disc_run(pipe, sam_pred, room_normals)
     finally:
         model.infer_pair, model.symmetric_inference_batch = infer, sym
         orch.extract_correspondences, orch.align_charts = ext, ac
         S.rectify_to_center_pp, S.sparse_global_alignment = rect, sga
         Trainer.step = step
+        sam_pred._encode, sam_pred._decode = enc, dec
+        SAM_.select_candidates, SAM_.nms_masks = sel_fn, nms_fn
+        priors.sam_generator.batch = batch_fn
+
+    sam_prec, sam_peak = sam_precision(sam_pred, st.images)
 
     # (i) MASt3R on one pair, card vs the same module on the CPU.
     card = model.infer_pair(*pair)
@@ -2126,7 +2268,235 @@ def front_end_phase():
     return dict(rows=rows, chunk_ms=chunk_ms, corres=corres,
                 sfm_stats=sfm_runs[-1][1], chart_stats=chart_runs[-1][1], colmap_s=colmap_s,
                 launches=launches, peak=peak, run_s=run_s, timing_log=timing_log,
+                sam=sam_log, sam_prec=sam_prec, sam_peak=sam_peak, sam_writer=sam_pred,
+                discs=discs,
                 phase_s=time.perf_counter() - t_phase)
+
+
+def disc_decoder(size, capture, n_capture):
+    """A stand-in for SAMPredictor._decode at its output shape: seeded disc
+    logits (n, 4, size, size) on the card, the disc centred on the prompt's
+    pixel, radius DISC_STEP * k (k in 1..5) and slope 0.3 or 4, drawn from
+    the prompts' sum, as tests/test_torch_sam.py's stand-in draws them; the
+    predicted IoU 0. The first `n_capture` batches' logits are appended to
+    `capture` on the host."""
+    import torch
+
+    yy, xx = torch.meshgrid(*(torch.arange(size, device=DEVICE, dtype=torch.float32) + 0.5
+                              for _ in range(2)), indexing="ij")
+
+    def decode(emb, pts, labels):
+        rng = np.random.default_rng(int(pts.cpu().numpy().sum() * 1e4))
+        n = len(pts)
+        r = torch.from_numpy(DISC_STEP * rng.integers(1, 6, (n, 4))).float().to(DEVICE)
+        slope = torch.from_numpy(rng.choice([0.3, 4.0], (n, 4))).float().to(DEVICE)
+        c = torch.round(pts[:, 0] * size)
+        d = torch.sqrt((xx - c[:, 0, None, None]) ** 2 + (yy - c[:, 1, None, None]) ** 2)
+        logits = (r[:, :, None, None] - d[:, None]) * slope[:, :, None, None]
+        if len(capture) < n_capture:
+            capture.append(logits.cpu().numpy())
+        return logits, torch.zeros(n, 4, device=DEVICE)
+
+    return decode
+
+
+def plain_sam_masks(batches, size, thr=0.85, nms_iou=0.8):
+    """The JAX package's selection and NMS (g4splat_tpu/priors/sam.py:600-622)
+    on one view's decoder logits, host numpy batches (n, M, h, w): per prompt
+    the smallest mask with stability >= thr and a non-empty area, then the
+    sequential IoU loop, largest first. The kept masks are resized to `size`
+    by the port's resize_nearest on the CPU (held to jax.image.resize by
+    tests/test_torch_sam.py). Returns the (H, W) bool masks and the number of
+    candidates."""
+    import torch
+
+    from g4splat_torch.priors.sam import resize_nearest
+
+    cands = []
+    for logits in batches:
+        stab = (logits > 1).sum((-2, -1)) / np.maximum((logits > -1).sum((-2, -1)), 1)
+        for bi in range(len(logits)):
+            areas = [(logits[bi, m] > 0).sum() for m in range(logits.shape[1])]
+            valid = [m for m in range(logits.shape[1]) if stab[bi, m] >= thr and areas[m] > 0]
+            if valid:
+                cands.append(logits[bi, min(valid, key=lambda m: areas[m])] > 0)
+    kept = nms_loop(cands, nms_iou)
+    if not kept:
+        return [], len(cands)
+    return list(resize_nearest(torch.from_numpy(np.stack([cands[i] for i in kept])),
+                               size).numpy()), len(cands)
+
+
+def sam_disc_run(pipe, pred, room_normals):
+    """Phase 17's gate (xi): excavate_planes once more over the pipeline's
+    views (run()'s end state), SAM's encoder as it is and its decoder
+    replaced by `disc_decoder`, so that every view has up to 256 proposals at
+    the production shapes. On the first DISC_REF_VIEWS views the masks equal
+    `plain_sam_masks` on the same logits; on those views and on the view
+    with the most instances, PlaneExcavator's instance map equals the port's
+    PlaneExcavator on the CPU given the same masks within PIXEL_SHARE of the
+    pixels. The same holds, with at least one instance, for view 0's masks
+    on `room_normals` (the box room's normals rendered by B1 from camera 0):
+    run()'s end state comes from training, whose B2 atomics add in a new
+    order every run, so how many instances its views keep varies from run
+    to run. Returns the run's numbers."""
+    import torch
+
+    from g4splat_torch.pipeline import orchestrator as orch
+    from g4splat_torch.pipeline.planes import PlaneExcavator, PlaneExcavatorConfig
+    from g4splat_torch.priors import sam as SAM_
+
+    st = pipe.state
+    gen = pipe.priors.sam_generator
+    size = 4 * pred.cfg.img_size // pred.cfg.patch_size
+    per_view = -(-256 // 64)
+    capture, cands, out = [], [], {}
+    decode, batch, nms = pred._decode, gen.batch, SAM_.nms_masks
+
+    def batch_spy(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["masks"] = batch(images)
+        torch.cuda.synchronize()
+        out["sam_s"] = time.perf_counter() - t0
+        return out["masks"]
+
+    def nms_spy(masks, areas, thr):
+        cands.append(len(areas))
+        return nms(masks, areas, thr)
+
+    pred._decode = disc_decoder(size, capture, DISC_REF_VIEWS * per_view)
+    gen.batch, SAM_.nms_masks = batch_spy, nms_spy
+    try:
+        orch.G4SplatPipeline.excavate_planes(pipe)
+    finally:
+        pred._decode, gen.batch, SAM_.nms_masks = decode, batch, nms
+    name, exc_s = pipe.timing_log[-1]
+    masks = out["masks"]
+    H, W = st.images.shape[1:3]
+    same = []
+    for v in range(DISC_REF_VIEWS):
+        ref, n_cand = plain_sam_masks(capture[v * per_view:(v + 1) * per_view], (H, W))
+        same.append(n_cand == cands[v] and len(ref) == len(masks[v]) and all(
+            np.array_equal(a, b) for a, b in zip(ref, masks[v])))
+    kept = [len(m) for m in masks]
+    inst = [int(np.max(m)) for m in st.plane_masks]
+    # The smallest proposals take the first instance ids and the larger ones
+    # overwrite them (the JAX package's order), so with ~240 overlapping discs
+    # the first max_instances ids often fall under the area floor and a view
+    # keeps none: the view with the most instances is compared as well.
+    exc = PlaneExcavator(PlaneExcavatorConfig())
+    shares = {}
+    for v in sorted(set(range(DISC_REF_VIEWS)) | {int(np.argmax(inst))}):
+        host = exc(st.images[v].cpu(), st.normals[v].cpu(), seg_masks=masks[v])["seg_mask"]
+        shares[f"view {v}"] = (float(np.mean(host != st.plane_masks[v])), inst[v])
+    room = exc(st.images[0], room_normals, seg_masks=masks[0])["seg_mask"]
+    host = exc(st.images[0].cpu(), room_normals.cpu(), seg_masks=masks[0])["seg_mask"]
+    shares["view 0 on the room's normals"] = (float(np.mean(host != room)), int(room.max()))
+    check(name == "excavate_planes" and all(same) and max(x for x, _ in shares.values())
+          <= PIXEL_SHARE and int(room.max()) > 0 and max(kept) <= 256,
+          f"(xi) excavate_planes over {len(masks)} views with seeded disc logits in place of "
+          f"SAM's decoder (256 prompts, 4 x {size}x{size}): on views 0-{DISC_REF_VIEWS - 1} "
+          f"the masks equal the JAX package's selection and NMS loop on the same logits "
+          f"({cands[:DISC_REF_VIEWS]} candidates, {kept[:DISC_REF_VIEWS]} kept); "
+          f"PlaneExcavator on the card vs on the CPU given those masks, pixels differing "
+          + ", ".join(f"{k} {x:.2e} ({n} instances)" for k, (x, n) in shares.items())
+          + f" <= {PIXEL_SHARE}, the last with at least one instance; run()'s views kept "
+          f"instances in {sum(i > 0 for i in inst)} of {len(inst)}")
+    return dict(views=len(masks), exc_s=exc_s, sam_s=out["sam_s"], cands=cands, kept=kept,
+                inst=inst)
+
+
+def sam_encoder_flops(cfg):
+    """fp32 operations of one view through SAM's image encoder: the patch
+    embedding; per block qkv and proj over the (window-padded) tokens, the
+    MLP, QK^T and PV, the rel-pos einsums; the neck. Multiply-adds count 2."""
+    C, g, w = cfg.encoder_dim, cfg.img_size // cfg.patch_size, cfg.window_size
+    n = g * g
+    gp = g + (-g) % w
+    flops = 2 * n * 3 * cfg.patch_size ** 2 * C
+    for i in range(cfg.encoder_depth):
+        glob = (i + 1) % cfg.global_attn_every == 0
+        tokens = n if glob else gp * gp
+        flops += 2 * tokens * 4 * C * C + 2 * n * 8 * C * C
+        side, per = (g, n) if glob else (w, w * w)
+        flops += (tokens // per) * (4 * per * per * C + 4 * per * side * C)
+    return flops + 2 * n * C * cfg.embed_dim + 2 * n * 9 * cfg.embed_dim ** 2
+
+
+def nms_loop(masks, thr):
+    """The JAX package's NMS (g4splat_tpu/priors/sam.py:617-622) on host
+    masks: a stable sort by area, largest first, then the sequential
+    mask_iou loop. Returns the kept indices."""
+    from g4splat_torch.priors.sam import mask_iou
+
+    kept = []
+    for i in sorted(range(len(masks)), key=lambda i: -masks[i].sum()):
+        if all(mask_iou(masks[i], masks[k]) < thr for k in kept):
+            kept.append(i)
+    return kept
+
+
+def source_model(src, cams):
+    """A calibrated source tree's `sparse/0` (the port's COLMAP writer):
+    PINHOLE cameras and the poses of the batched `cams`, image v named
+    frame_{v:06d}.png. Returns the cameras and images written."""
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.io import colmap as colmap_io
+
+    ccams, cimgs = {}, {}
+    for v in range(cams.w2c.shape[0]):
+        c = camera_at(cams, v)
+        w2c = c.w2c.cpu().numpy().astype(np.float64)
+        ccams[v + 1] = colmap_io.ColmapCamera(v + 1, "PINHOLE", c.width, c.height, np.array(
+            [float(c.fx), float(c.fy), float(c.cx), float(c.cy)]))
+        cimgs[v + 1] = colmap_io.ColmapImage(v + 1, colmap_io.rotmat2qvec(w2c[:3, :3]),
+                                             w2c[:3, 3], v + 1, f"frame_{v:06d}.png")
+    colmap_io.write_model(ccams, cimgs, {}, os.path.join(src, "sparse", "0"))
+    return ccams, cimgs
+
+
+def sam_precision(pred, images):
+    """Phase 17's gate (viii): SAM at full width on view 0 (squashed to
+    img_size²), the image embedding and the mask logits and IoU of the first
+    64-prompt batch, in fp32 against the same module in float64 on the card
+    (both decodes take the fp32 embedding); then the encoder's peak memory
+    over one slab of 2 views. Returns ({what: (max|d|, max|float64|)}, peak
+    GiB above the memory held before the slab)."""
+    import copy
+
+    import torch
+
+    from g4splat_torch.core.resize import resize_bilinear
+
+    S = pred.cfg.img_size
+    x = resize_bilinear(images[:1], (S, S))
+    pts = torch.from_numpy(np.random.default_rng(0).random((256, 2)).astype(np.float32)[:64])
+    pts = pts.to(DEVICE)[:, None, :]
+    lbl = torch.ones(64, 1, device=DEVICE)
+    emb = pred._encode(x)
+    logits, iou = pred._decode(emb.expand(64, -1, -1, -1), pts, lbl)
+    m64 = copy.deepcopy(pred.model).double()
+    with torch.no_grad():
+        emb64 = m64.encode_image(x.double())
+        logits64, iou64 = m64.decode(emb.double().expand(64, -1, -1, -1), pts.double(),
+                                     lbl.double())
+    del m64
+    errs = {k: (float((a.double() - b).abs().max()), float(b.abs().max())) for k, a, b in
+            (("embedding", emb, emb64), ("mask logits", logits, logits64), ("IoU", iou, iou64))}
+    H, W = images.shape[1:3]
+    check(all(d <= SAM_REL * m for d, m in errs.values()),
+          f"(viii) SAM at full width on view 0 ({W}x{H} squashed to {S}x{S}), fp32 vs float64 "
+          f"of the same module on the card: max|d| <= {SAM_REL} * max|float64| for "
+          + ", ".join(f"{k} {d:.2e}/{m:.3e}" for k, (d, m) in errs.items()))
+    del emb, emb64, logits, logits64, iou, iou64
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pred.encode_images(images[:2])
+    torch.cuda.synchronize()
+    return errs, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
 def print_front_end(r):
@@ -2154,6 +2524,195 @@ def print_front_end(r):
     print(f"  launches in run(): B1 {b1}, B2 {b2}, B3 {b3}")
     print(f"  run() {r['run_s']:.1f} s, phase {r['phase_s']:.1f} s (host clock); peak device "
           f"memory {r['peak']:.2f} GiB")
+    s = r["sam"]
+
+    def spread(x):
+        return (f"median {np.median(x):.3f}, min {min(x):.3f}, max {max(x):.3f} "
+                f"({len(x)})" if len(x) else "none")
+
+    print(f"  SAM (host clock, synchronized): encode ms per slab of 2 {spread(s['encode_ms'])}; "
+          f"decode ms per 64-prompt batch {spread(s['decode_ms'])}; selection + NMS ms per "
+          f"view {spread(s['view_ms'])}")
+    for i, c in enumerate(s["calls"]):
+        print(f"  SAM in excavate_planes call {i + 1}: {c['views']} views; candidates per view "
+              f"min {min(c['cands'])}, median {np.median(c['cands']):.1f}, max "
+              f"{max(c['cands'])}; kept min {min(c['kept'])}, median "
+              f"{np.median(c['kept']):.1f}, max {max(c['kept'])}")
+    print("  excavate_planes s with SAM: " + ", ".join(
+        f"{sec:.3f}" for name, sec, _ in r["rows"] if name.startswith("excavate_planes")))
+    n_params = sum(p.numel() for p in r["sam_writer"].model.parameters())
+    flops = sam_encoder_flops(r["sam_writer"].cfg)
+    bound = 2 * flops / FP32_OPS_PER_S * 1e3
+    weights_ms = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"  SAM encoder bound per slab of 2 {bound:.1f} ms ({flops / 1e12:.3f} TFLOP per view "
+          f"over the H100's 67 TFLOP/s fp32 peak outside the tensor cores; operations bind: "
+          f"reading the weights takes {weights_ms:.2f} ms); the median slab takes "
+          f"{np.median(s['encode_ms']) / bound:.2f} times it")
+    print(f"  SAM encoder peak over a slab of 2 views {r['sam_peak']:.2f} GiB above the "
+          f"resident set (weights {4 * n_params / 2**30:.2f} GiB fp32)")
+    d = r["discs"]
+    print(f"  (xi) excavate_planes with disc logits over {d['views']} views: {d['exc_s']:.3f} s "
+          f"(SAM's encoder, the stand-in decoder, selection, NMS and the resize "
+          f"{d['sam_s']:.3f} s; PlaneExcavator, files and the global merge the rest); "
+          f"candidates per view min {min(d['cands'])}, median {np.median(d['cands']):.1f}, "
+          f"max {max(d['cands'])}; kept min {min(d['kept'])}, median "
+          f"{np.median(d['kept']):.1f}, max {max(d['kept'])}; instances min {min(d['inst'])}, "
+          f"median {np.median(d['inst']):.1f}, max {max(d['inst'])}")
+
+
+def cli_phase(writer):
+    """Phase 18: the command line as users start it, `python -m
+    g4splat_torch.cli` (run in this process by `runpy`, so that the kernels'
+    counters see its launches), on a source directory of photos and an npz
+    zoo holding sam.npz alone (written from phase 17's full-width SAM
+    `writer` through `convert_torch_sam`), with gates (i)-(vi). Returns the
+    CLI's launches (B1, B2, B3)."""
+    import runpy
+    import tempfile
+    import traceback
+
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.eval.synthetic import box_room, inward_cameras
+    from g4splat_torch.io import colmap as colmap_io
+    from g4splat_torch.io.images import save_image
+    from g4splat_torch.ops import attention_cuda, rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.pipeline import orchestrator as orch
+    from g4splat_torch.priors import sam as SAM_
+
+    n_views, w, h = CLI_VIEWS
+    train = list(range(n_views - 2))
+    it = CLI_ARGS[CLI_ARGS.index("--iterations") + 1]
+    counters = (rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD,
+                attention_cuda.ATTENTION_FWD)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, zoo, out = (os.path.join(tmp, d) for d in ("source", "zoo", "out"))
+        os.makedirs(os.path.join(src, "images"))
+        os.makedirs(zoo)
+        scene, _ = box_room(MESH_DENSITY, device=DEVICE)
+        cams = inward_cameras(n_views, w, h, device=DEVICE)
+        with torch.no_grad():
+            for v in range(n_views):
+                img = render(camera_at(cams, v), scene, backend="cuda")["render"].clamp(0, 1)
+                save_image(os.path.join(src, "images", f"frame_{v:06d}.png"), img)
+        del scene
+        ccams, cimgs = source_model(src, cams)
+        with open(os.path.join(src, f"split-{len(train)}views.json"), "w") as f:
+            json.dump({"train": train, "test": [n_views - 2, n_views - 1]}, f)
+        print(f"  source: {n_views} photos of box_room({MESH_DENSITY}) rendered by B1 from "
+              f"inward_cameras({n_views}, {w}, {h}) as 8-bit PNGs, sparse/0, "
+              f"split-{len(train)}views.json (train {train}, test {[n_views - 2, n_views - 1]})")
+
+        t0 = time.perf_counter()
+        ref = {k: v.cpu() for k, v in writer.model.state_dict().items()}
+        params = SAM_.convert_torch_sam({k: v.numpy() for k, v in ref.items()}, writer.cfg)
+        path = os.path.join(zoo, "sam.npz")
+        np.savez(path, params=np.array(params, dtype=object))
+        write_s = time.perf_counter() - t0
+        del params
+        zoo_keys = {k for k in ref if not k.startswith(SAM_.DOWNSCALING)}
+        # (ii): the SAM that the CLI's build_priors makes from the zoo, and the
+        # priors it hands the pipeline, seen from inside the run.
+        seen = {}
+        predictor, init = SAM_.SAMPredictor, orch.G4SplatPipeline.__init__
+
+        class Spy(predictor):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                torch.cuda.synchronize()
+                seen["build_s"] = time.perf_counter() - t_cli
+                got = self.model.state_dict()
+                seen["same"] = set(got) == set(ref) and all(
+                    torch.equal(got[k].cpu(), ref[k]) for k in zoo_keys)
+
+        def init_spy(self, cfg, priors, *a, **kw):
+            seen["others_none"] = (priors.mast3r is None and priors.see3d is None
+                                   and priors.depth_model is None
+                                   and callable(priors.sam_generator))
+            init(self, cfg, priors, *a, **kw)
+
+        args = ["-s", src, "-o", out, "--checkpoint_dir", zoo, *CLI_ARGS]
+        print(f"  python3 -m g4splat_torch.cli {' '.join(args)}")
+        argv = sys.argv
+        SAM_.SAMPredictor, orch.G4SplatPipeline.__init__ = Spy, init_spy
+        sys.argv = ["g4splat_torch.cli", *args]
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t_cli = time.perf_counter()
+        try:
+            runpy.run_module("g4splat_torch.cli", run_name="__main__", alter_sys=True)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+        except Exception:
+            traceback.print_exc()
+            rc = 1
+        finally:
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t_cli
+            launches = tuple(c.launches for c in counters)
+            sys.argv = argv
+            SAM_.SAMPredictor, orch.G4SplatPipeline.__init__ = predictor, init
+        del ref
+        torch.cuda.empty_cache()
+        check(rc == 0, f"(i) the CLI exited with {rc} after {cli_s:.1f} s")
+        check(seen.get("same", False) and seen.get("others_none", False),
+              f"(ii) build_priors on the zoo ({os.path.getsize(path) / 2**30:.2f} GiB sam.npz, "
+              f"written in {write_s:.1f} s; the CLI had read it and built SAM on the card "
+              f"{seen.get('build_s', float('nan')):.1f} s after it started): SAM's state dict "
+              f"bit-identical to the writer's on all {len(zoo_keys)} keys the zoo holds (the "
+              f"zoo drops mask_downscaling); no other prior")
+        sparse = os.path.join(out, "sfm", "sparse", "0")
+        ok = os.path.isdir(sparse)
+        scale = int(CLI_ARGS[CLI_ARGS.index("--work_size") + 1]) / max(w, h)
+        if ok:
+            rc_, ri, _ = colmap_io.read_model(sparse)
+            ok = len(ri) == len(train) and all(
+                np.allclose(ri[v + 1].tvec, cimgs[v + 1].tvec, atol=1e-5)
+                and np.allclose(ri[v + 1].qvec, cimgs[v + 1].qvec, atol=1e-5)
+                and np.isclose(rc_[v + 1].params[0], ccams[v + 1].params[0] * scale, rtol=1e-5)
+                for v in train)
+        renders = os.path.join(out, "free_gaussians", "test", f"ours_{it}", "renders")
+        shown = sorted(os.listdir(renders)) if os.path.isdir(renders) else []
+        check(ok and shown == ["00000.png", "00001.png"],
+              f"(iii) the split file was read: sfm/sparse/0 holds the poses of views {train}, "
+              f"focals scaled by {scale} to the work size (C23); "
+              f"evaluate rendered {shown} (views {n_views - 2} and {n_views - 1})")
+        res = os.path.join(out, f"result_iter_{it}.json")
+        results = json.load(open(res)) if os.path.exists(res) else {}
+        txt = os.path.join(out, f"result_iter_{it}.txt")
+        lines = [l.split(":")[0] for l in open(txt).read().splitlines()] if os.path.exists(
+            txt) else []
+        check(list(results) == lines == EVAL_KEYS[:5] and results.get("test_views_num") == 2,
+              f"(iv) result_iter_{it}.json and .txt hold the JAX package's keys for a held-out "
+              f"split: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                                     for k, v in results.items()))
+        g = os.path.join(out, "free_gaussians")
+        snaps = sorted(os.listdir(g)) if os.path.isdir(g) else []
+        meshes = os.listdir(os.path.join(out, "tetra_meshes")) if os.path.isdir(
+            os.path.join(out, "tetra_meshes")) else []
+        planes = os.path.join(out, "sfm", "plane-refine-depths")
+        n_planes = len([f for f in os.listdir(planes) if f.startswith("plane_mask_frame")]
+                       ) if os.path.isdir(planes) else 0
+        check(snaps == ["point_cloud", "point_cloud-ori", "point_cloud-s1", "point_cloud-s2",
+                        "test"] and any(m.endswith(".ply") for m in meshes)
+              and n_planes >= len(train),
+              f"(v) free_gaussians/ holds {snaps}; tetra_meshes/ {sorted(meshes)}; "
+              f"{n_planes} plane_mask_frame*.npy")
+    # Four train_gaussians (the start and one per See3D stage), one B2 launch
+    # per step; no See3D in the zoo, so no B3.
+    n_train = 1 + orch.PipelineConfig().n_see3d_stages
+    check(launches[0] > 0 and launches[1] == n_train * int(it) and launches[2] == 0,
+          f"(vi) --render_backend cuda: the CLI launched B1 {launches[0]} times, B2 "
+          f"{launches[1]} ({n_train} train_gaussians x {it} steps), B3 {launches[2]} (no "
+          f"See3D in the zoo)")
+    print(f"  launches in the CLI: B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]}")
+    print(f"  phase 18 {time.perf_counter() - t_phase:.1f} s, the CLI {cli_s:.1f} s (host clock)")
+    return launches
 
 
 def print_mesh_timings(r):
@@ -2602,13 +3161,21 @@ def main():
 
     print(f"== phase 17: G4SplatPipeline.run() from {FRONT_VIEWS[0]} posed photos at "
           f"{FRONT_VIEWS[1]}x{FRONT_VIEWS[2]} (MASt3R at full width, SfM, charts, one See3D "
-          f"stage, the multires mesh, eval)")
+          f"stage, the multires mesh, eval; SAM ViT-H's plane proposals); {smi}")
     front17 = front_end_phase()
     print_front_end(front17)
+    torch.cuda.empty_cache()
+
+    print(f"== phase 18: python -m g4splat_torch.cli on {CLI_VIEWS[0]} photos at "
+          f"{CLI_VIEWS[1]}x{CLI_VIEWS[2]} and an npz zoo holding sam.npz alone (SAM at full "
+          f"width, the other priors absent); {smi}")
+    launches18 = cli_phase(front17.pop("sam_writer"))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
-        print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ")
+        for out in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: {len(failures)} check(s) failed:", *failures, sep="\n  ",
+                  file=out, flush=True)
         return 1
     # B1: one launch of the render main path = its two modes at frame 0,
     # averaged; its launches are those of the render, training, render_all /
@@ -2625,16 +3192,18 @@ def main():
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
          "launches": launches + launches8[0] + launches13 + mesh14["launches"]
-                     + loop16["launches"][0] + front17["launches"][0],
+                     + loop16["launches"][0] + front17["launches"][0] + launches18[0],
          "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
-         "launches": launches8[1] + loop16["launches"][1] + front17["launches"][1],
+         "launches": launches8[1] + loop16["launches"][1] + front17["launches"][1]
+                     + launches18[1],
          "max_abs_err": max_abs_err_bwd,
          "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},
         {"name": att.name, "route": "cuda", "source": att.source, "replaces": att.replaces,
-         "launches": launches11 + loop16["launches"][2] + front17["launches"][2],
+         "launches": launches11 + loop16["launches"][2] + front17["launches"][2]
+                     + launches18[2],
          "max_abs_err": err10, "ms": a_ms,
          "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib}]}))

@@ -12,8 +12,9 @@ convolutions) into the port's (OIHW). `flax_state_dict` turns the flax params of
 (`MultiViewUNet`, `AutoencoderKL`, `CLIPVision`, `CLIPText`) into the state
 dicts of the port's modules of the same names; `depth_anything_state_dict`
 does the same for `DepthAnythingV2`, and `mast3r_state_dict` for
-`AsymmetricMASt3R`, whose names follow the reference torch checkpoints
-instead. `chart_params_from` carries the chart-alignment init.
+`AsymmetricMASt3R`, and `sam_state_dict` for SAM's npz zoo tree, whose
+names follow the reference torch checkpoints instead. `chart_params_from`
+carries the chart-alignment init.
 """
 
 from __future__ import annotations
@@ -229,6 +230,95 @@ def mast3r_state_dict(params, cfg=None) -> Dict[str, torch.Tensor]:
             out[f"{pre}dpt.scratch.refinenet4.resConfUnit1.{conv}.weight"] = torch.zeros(
                 f, f, 3, 3)
             out[f"{pre}dpt.scratch.refinenet4.resConfUnit1.{conv}.bias"] = torch.zeros(f)
+    return out
+
+
+def sam_state_dict(params, cfg=None) -> Dict[str, torch.Tensor]:
+    """SAM's params tree, as the npz zoo holds it (`priors.sam.convert_torch_sam`'s
+    output, with or without the top-level ``"params"``) → the official
+    checkpoint's state dict, every key but ``prompt_encoder.mask_downscaling.*``,
+    which the zoo drops. Dense kernels (I, O) → weights (O, I), convolution
+    kernels (kh, kw, I, O) → (O, I, kh, kw), the stacked point embeddings →
+    four (1, D) rows, and the two transposed convolutions flip their taps
+    back: flax (kh, kw, in, out) mirrored in kh and kw → torch (in, out, kh,
+    kw)."""
+    from g4splat_torch.priors.sam import SAMConfig
+
+    cfg = cfg or SAMConfig()
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, value):
+        out[name] = torch.from_numpy(np.array(value, np.float32, order="C"))
+
+    def lin(prefix, node):
+        put(prefix + ".weight", np.asarray(node["kernel"]).T)
+        put(prefix + ".bias", node["bias"])
+
+    def ln(prefix, node):
+        put(prefix + ".weight", node["scale"])
+        put(prefix + ".bias", node["bias"])
+
+    def conv(prefix, node):
+        put(prefix + ".weight", np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in node:
+            put(prefix + ".bias", node["bias"])
+
+    def deconv(prefix, node):
+        put(prefix + ".weight", np.asarray(node["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        put(prefix + ".bias", node["bias"])
+
+    def attn(prefix, node):
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(f"{prefix}.{n}", node[n])
+
+    enc = params["image_encoder"]
+    conv("image_encoder.patch_embed.proj", enc["patch_embed"])
+    put("image_encoder.pos_embed", enc["pos_embed"])
+    for i in range(cfg.encoder_depth):
+        pre, blk = f"image_encoder.blocks.{i}.", enc[f"block_{i}"]
+        ln(pre + "norm1", blk["norm1"])
+        ln(pre + "norm2", blk["norm2"])
+        lin(pre + "attn.qkv", blk["attn"]["qkv"])
+        lin(pre + "attn.proj", blk["attn"]["proj"])
+        put(pre + "attn.rel_pos_h", blk["attn"]["rel_pos_h"])
+        put(pre + "attn.rel_pos_w", blk["attn"]["rel_pos_w"])
+        lin(pre + "mlp.lin1", blk["mlp_fc1"])
+        lin(pre + "mlp.lin2", blk["mlp_fc2"])
+    for i, name in enumerate(("neck_conv1", "neck_ln1", "neck_conv2", "neck_ln2")):
+        (conv if "conv" in name else ln)(f"image_encoder.neck.{i}", enc[name])
+
+    prm = params["prompt_encoder"]
+    put("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix", prm["pe_gaussian"])
+    for i in range(4):
+        put(f"prompt_encoder.point_embeddings.{i}.weight",
+            np.asarray(prm["point_embeddings"])[i:i + 1])
+    put("prompt_encoder.not_a_point_embed.weight", np.asarray(prm["not_a_point_embed"])[None])
+    put("prompt_encoder.no_mask_embed.weight", np.asarray(prm["no_mask_embed"])[None])
+
+    dec = params["mask_decoder"]
+    t = "mask_decoder.transformer."
+    for i in range(cfg.decoder_depth):
+        pre, blk = f"{t}layers.{i}.", dec[f"block_{i}"]
+        for n in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            attn(pre + n, blk[n])
+        lin(pre + "mlp.lin1", blk["mlp_lin1"])
+        lin(pre + "mlp.lin2", blk["mlp_lin2"])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            ln(pre + n, blk[n])
+    attn(t + "final_attn_token_to_image", dec["final_attn_token_to_image"])
+    ln(t + "norm_final_attn", dec["norm_final_attn"])
+    put("mask_decoder.iou_token.weight", dec["iou_token"])
+    put("mask_decoder.mask_tokens.weight", dec["mask_tokens"])
+    deconv("mask_decoder.output_upscaling.0", dec["up1"])
+    ln("mask_decoder.output_upscaling.1", dec["up_ln"])
+    deconv("mask_decoder.output_upscaling.3", dec["up2"])
+    for m in range(cfg.num_mask_tokens):
+        for j in range(3):
+            lin(f"mask_decoder.output_hypernetworks_mlps.{m}.layers.{j}",
+                dec[f"hyper_{m}_fc{j + 1}"])
+    for j in range(3):
+        lin(f"mask_decoder.iou_prediction_head.layers.{j}", dec[f"iou_fc{j + 1}"])
     return out
 
 

@@ -1,7 +1,7 @@
 """Image, depth-map and mask files of the reference's on-disk zoo
 (counterpart of `g4splat_tpu.io.images`): `rgb_frame*.png`,
 `depth_frame*.tiff` (float32 TIFF), `*_normal_*.npy`, `visibility_frame*.npy`,
-`confident_map_frame*.png`.
+`confident_map_frame*.png`; and the scene photos the CLI reads.
 
 PNG is encoded with the standard library (zlib + struct): 8-bit grey, RGB or
 RGBA, filter type 0, so the port needs no imaging package. Float images are
@@ -11,7 +11,9 @@ float32 TIFFs written by the port's own encoder (uncompressed, one strip,
 little-endian, SampleFormat IEEE float), which imaging libraries read as a
 mode "F" image; `load_depth_tiff` reads those and any uncompressed float32
 single-channel TIFF in strips (as PIL writes them). Masks are 8-bit grey PNGs
-of 0 / 255.
+of 0 / 255. `load_image` decodes PNGs as `save_image` writes them itself
+and hands other files (JPEG, PNGs with row filters) to Pillow, imported
+when such a file comes.
 
 `save_image_async` encodes on a small thread pool so that a render loop does
 not wait for zlib (the JAX package does the same); the array is copied to
@@ -98,6 +100,20 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: only PNG filter type 0 is read")
     arr = rows[:, 1:].reshape(h, w, c)
     return arr[..., 0] if c == 1 else arr
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image file → (H, W, 3) float32 in [0, 1], as Pillow's
+    ``convert("RGB")`` gives it: grey repeated, alpha dropped."""
+    try:
+        arr = read_png(path)
+    except ValueError:
+        from PIL import Image
+
+        arr = np.asarray(Image.open(path).convert("RGB"))
+    if arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=-1)
+    return arr[..., :3].astype(np.float32) / 255.0
 
 
 def _np(x) -> np.ndarray:

@@ -289,7 +289,7 @@ class G4SplatPipeline:
         st.cameras = cameras.to(self.device) if cameras is not None else None
         st.input_view_num = len(images)
         st.test_images = self._tensor(test_images) if test_images is not None else None
-        st.test_cameras = test_cameras
+        st.test_cameras = test_cameras.to(self.device) if test_cameras is not None else None
         w0 = 0.01 if self.cfg.downweight_input_view_color_loss else 1.0
         st.color_weights = torch.full((len(images),), w0, device=self.device)
 

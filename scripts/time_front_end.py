@@ -1,5 +1,5 @@
-"""Run G4SplatPipeline.run() from posed photos on one CUDA card:
-chip_smoke.py's phase 17 alone.
+"""Run G4SplatPipeline.run() from posed photos and then the command line on
+one CUDA card: chip_smoke.py's phases 17 and 18 alone.
 
 box_room(chip_smoke.MESH_DENSITY) photographed by B1 from
 inward_cameras(10, 512, 384), views 8 and 9 held out, a calibrated source
@@ -7,13 +7,17 @@ tree; MASt3R at full width, DepthAnything V2 ViT-L and the full-width See3D
 priors on seeded random weights, MASt3R's descriptors and pointmaps keyed
 on the room's surface before they reach the geometry stages; PipelineConfig(sfm_config="posed",
 alignment_config="default", use_multires_tsdf=True, n_see3d_stages=1) with
-chip_smoke.LOOP_ITERATIONS steps per train_gaussians and 5 DDIM timesteps.
-Its gates (MASt3R card vs CPU and the matcher vs its unblocked plain
+chip_smoke.LOOP_ITERATIONS steps per train_gaussians and 5 DDIM timesteps,
+SAM ViT-H on seeded weights proposing the plane masks. Its gates (MASt3R card vs CPU and the matcher vs its unblocked plain
 version, the posed cameras kept, the COLMAP trees, charts, finite training,
 launch counts, the mesh, the result keys, the snapshots), then each
 method's host seconds and launches, MASt3R's ms per chunk, the
 correspondences per pair, SfM and chart ms per iteration, the COLMAP
-writeout's seconds and peak device memory.
+writeout's seconds, SAM's encode, decode and selection + NMS times, its
+candidates and kept masks per view, excavate_planes with seeded disc
+logits in place of SAM's decoder, and peak device memory. Then phase 18:
+`python -m g4splat_torch.cli` (in this process) on a source directory and a
+zoo holding the same SAM as sam.npz, with its gates, output and launches.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -48,6 +52,8 @@ def main():
     print("== run() from posed photos")
     r = cs.front_end_phase()
     cs.print_front_end(r)
+    print("== the command line")
+    cs.cli_phase(r.pop("sam_writer"))
     if cs.failures:
         print(f"time_front_end: {len(cs.failures)} check(s) failed:", *cs.failures,
               sep="\n  ")
