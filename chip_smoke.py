@@ -1,5 +1,5 @@
 """Drive the g4splat_torch render, training, See3D inpainting, output,
-See3D-loop, run() and command-line paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
+See3D-loop, run(), command-line and resume paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
 rasterizer, B2 backward rasterizer, B3 attention) against the kernels'
 plain PyTorch versions.
 
@@ -95,9 +95,10 @@ Phases (any failure exits non-zero and prints no result line):
  16. one See3D loop through G4SplatPipeline (run()'s order without SfM,
      charts, mesh and eval): box_room(MESH_DENSITY) rendered by B1 from
      inward_cameras(8, 512, 384) as the inputs and the stand-in chart depths;
-     PipelineConfig() save LOOP_ITERATIONS steps per train_gaussians and 5
-     DDIM timesteps; full-width See3D priors and DepthAnything("vitl") on
-     seeded random weights; render_chart_views, excavate_planes,
+     PipelineConfig() save LOOP_ITERATIONS steps per train_gaussians and
+     LOOP_SEE3D_STEPS DDIM steps; full-width See3D priors and
+     DepthAnything("vitl") on seeded random weights; render_chart_views,
+     excavate_planes,
      refine_plane_depths, train_gaussians, then per stage see3d_stage(k),
      refine_plane_depths(k == 3), train_gaussians. Gates: (i) stage 1's
      candidate sweep again with B1's plain version gives every none-visible
@@ -143,6 +144,25 @@ Phases (any failure exits non-zero and prints no result line):
      the mesh and the plane masks; (vi) B1 and B2 launched by the CLI's
      run (B2 once per training step), B3 not at all. Prints the CLI's
      output and launches.
+ 19. resume and the shell on phase 18's artifact store: (i) stage_done true
+     for every stage the CLI ran, agreeing with the files; (ii)
+     resume_from_artifacts in a fresh G4SplatPipeline rebuilds the CLI's
+     state (cameras within 1e-5, images within 1/255 of the ones the CLI
+     wrote, depths, plane masks and the plane dict equal, the scene bit-equal
+     to the final PLY); (iii) train_gaussians from the resumed state inside
+     profiling.trace, one B1 and one B2 launch per step, finite losses, both
+     kernels named in the exported trace, and render_all over the resumed
+     cameras (one B1 per view); (iv) a Trainer on the resumed scene saves
+     after 5 steps, a fresh one loads the file bit for bit, draws the same
+     next 5 views and after one step lies within CKPT_REL * max|param|;
+     (v) ViewerServer on an ephemeral port: /render's PNG within one level
+     of the 8-bit render() of the same camera, /info, depth and normal
+     modes, 404; (vi) quality_run at the JAX package's gate configuration
+     and thresholds; (vii) phase 17's matches export (three pairs through
+     the keyed full-width MASt3R) equal to plain_grid_matches on the same
+     descriptors, and load_matches round-trips it; (viii) python -m
+     g4splat_torch.zoo on an official-named seeded DepthAnythingV2 checkpoint,
+     then build_priors: depth on two views bit-equal to the seeded model's.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
@@ -150,6 +170,7 @@ nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -283,10 +304,13 @@ ADAPTIVE_BAND = 0.1
 # on box_room(MESH_DENSITY) from inward_cameras(8, 512, 384): room_cameras'
 # eyes sit at the open front, outside the space the views observe, where the
 # stage-1 orbit proposes nothing. PipelineConfig() defaults save
-# LOOP_ITERATIONS steps per train_gaussians (phase 8's cut) and phase 11's
-# 5 DDIM timesteps; full-width See3D priors and DepthAnything("vitl").
+# LOOP_ITERATIONS steps per train_gaussians (phase 8's cut) and, in phases
+# 16-17, one DDIM step of See3D (a cut for time: with phase 19 the script
+# ran 1010-1103 s at 3 steps; phase 11 times the See3D stage at 5);
+# full-width See3D priors and DepthAnything("vitl").
 LOOP_VIEWS = (8, 512, 384)
 LOOP_ITERATIONS = 35
+LOOP_SEE3D_STEPS = 1
 LOOP_DA2 = "vitl"
 # Gate (i): stage 1's none-visible rates from B1's sweep vs its plain version's.
 RATE_TOL = 1e-4
@@ -299,6 +323,12 @@ DA2_REL = 1e-3
 FRONT_VIEWS = (10, 512, 384)
 FRONT_EVAL = [8, 9]
 FRONT_DENSE = [0, 2, 4, 6]
+# Chart alignment's schedule in phase 17: "fast" (300 steps; "default" runs
+# 1000), a cut for time that phase 19 asked for.
+FRONT_CHARTS = "fast"
+# Phase 19's gate (vii): the pairs of run()'s photos whose matches are
+# exported (neighbours on the inward ring, so the keyed descriptors match).
+MATCH_PAIRS = [(0, 1), (1, 2), (2, 3)]
 # Gate (i): MASt3R on the card vs on the CPU, and the matching crop (h, w).
 MAST3R_REL = 1e-3
 MATCH_CROP = (48, 64)
@@ -328,6 +358,21 @@ CLI_ARGS = ["--sfm_config", "posed", "--use_view_config", "--config_view_num", "
             "--work_size", "256"]
 RESULT_KEYS = EVAL_KEYS[:5] + ["Acc", "Comp", "Chamfer-L1", "Prec", "Recal", "F-score",
                                "Normal-Acc", "Normal-Comp", "Normal-Consistency"]
+# Phase 19: steps of each Trainer around the checkpoint (CKPT_STEPS, save,
+# CKPT_STEPS more) and the tolerance on the parameters one step after the
+# load (B2's atomics add in another order every run, ROADMAP C9);
+# quality_run at the JAX package's gate (tests/test_quality.py:87-103) with
+# its thresholds, and that configuration's CPU calibration
+# (logs/quality_r05.json: a quality record, not a time); the DA2 encoder the
+# zoo writer converts.
+CKPT_STEPS = 5
+CKPT_REL = 1e-4
+QUALITY_ARGS = dict(res=128, n_views=8, eval_split=(2, 5), train_iters=400,
+                    tsdf_resolution=96, points_per_m2=1200)
+QUALITY_GATE = {"Average-PSNR": (">", 12.0), "Average-SSIM": (">", 0.45),
+                "Chamfer-L1": ("<", 12.0)}
+QUALITY_CPU = {"Average-PSNR": 14.82, "Average-SSIM": 0.554, "Chamfer-L1": 6.35}
+ZOO_DA2 = "vitl"
 # fp32 operations of one (point, view) step of ops/tsdf.integrate_views in the
 # production options: projection 21, rounding and clamps 6, validity 11,
 # bilinear depth 22, difference and truncation 7, weight and running mean 9,
@@ -1584,7 +1629,7 @@ def see3d_loop_phase():
           "input depths hold empty (0) pixels, share per view "
           + " ".join(f"{float(e):.3f}" for e in empty))
     del outs, scene
-    priors = see3d_priors(5, SEE3D_SHAPE[3])
+    priors = see3d_priors(5, LOOP_SEE3D_STEPS)
     priors.depth_model = DepthAnything(LOOP_DA2, seed=6, device=DEVICE)
     # With the default init the head's last convolution is negative over the
     # whole image and its ReLU gives a disparity of 0 everywhere: its bias is
@@ -1808,6 +1853,63 @@ def plain_matches(d1, d2, c1, c2, subsample=8):
             conf.cpu().numpy())
 
 
+def plain_grid_matches(d1, d2, c1, c2, subsample=8):
+    """plain_matches computing only the similarity rows it reads: the
+    subsample grid's rows of image 1 against all of image 2, and the rows of
+    their nearest neighbours in image 2 against all of image 1, each one
+    unblocked product (the whole 512x384 similarity would take 154 GB).
+    The same mutual pairs on the grid, conf sqrt(c1 c2). Host numpy."""
+    import torch
+
+    H, W, D = d1.shape
+    a, b = d1.reshape(-1, D), d2.reshape(-1, D)
+    idx = torch.arange(H * W, device=a.device)
+    g = idx[((idx // W) % subsample == 0) & ((idx % W) % subsample == 0)]
+    nn12 = torch.argmax(a[g] @ b.T, 1)
+    back = torch.argmax(b[nn12] @ a.T, 1)
+    idx1, idx2 = g[back == g], nn12[back == g]
+    conf = torch.sqrt(c1.reshape(-1)[idx1] * c2.reshape(-1)[idx2])
+    i1, i2 = idx1.cpu().numpy(), idx2.cpu().numpy()
+    return (np.stack([i1 % W, i1 // W], 1), np.stack([i2 % d2.shape[1], i2 // d2.shape[1]], 1),
+            conf.cpu().numpy())
+
+
+def export_matches_run(model, images, root):
+    """compute_and_export_matches over MATCH_PAIRS of `images` through
+    `model` (its symmetric_inference_batch recorded), the npz written under
+    `root` and read back by load_matches, and plain_grid_matches on the
+    recorded descriptors: what phase 19's gate (vii) holds."""
+    import torch
+
+    from g4splat_torch.device import fp32_math
+    from g4splat_torch.pipeline.matches_export import compute_and_export_matches, load_matches
+
+    path = os.path.join(root, "matches", "matches.npz")
+    sym, seen = model.symmetric_inference_batch, []
+
+    def recorded(*a, **kw):
+        out = sym(*a, **kw)
+        seen.extend(out)
+        return out
+
+    model.symmetric_inference_batch = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compute_and_export_matches(model, images, MATCH_PAIRS, out_path=path)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+    finally:
+        model.symmetric_inference_batch = sym
+    with fp32_math():
+        want = [plain_grid_matches(o11["desc"][0], o22["desc"][0], o11["desc_conf"][0],
+                                   o22["desc_conf"][0]) for o11, _, o22, _ in seen]
+    with np.load(path) as data:
+        npz = {k: data[k] for k in data.files}
+    return dict(npz=npz, want=want, loaded=load_matches(path), export_s=export_s,
+                shape=tuple(images.shape[1:3]))
+
+
 def front_end_phase():
     """Phase 17: G4SplatPipeline.run() from posed photos on the card, with
     gates (i)-(vii). Returns what the summary prints."""
@@ -1846,7 +1948,7 @@ def front_end_phase():
           f"({len(gt_mesh[1])} faces); {n_views} photos rendered by B1 from "
           f"inward_cameras({n_views}, {w}, {h}), no depth passed on; views {FRONT_EVAL} "
           f"held out")
-    priors = see3d_priors(7, SEE3D_SHAPE[3])
+    priors = see3d_priors(7, LOOP_SEE3D_STEPS)
     priors.depth_model = DepthAnything(LOOP_DA2, seed=8, device=DEVICE)
     with torch.no_grad():       # as phase 16: a disparity that varies
         priors.depth_model.model.depth_head.scratch.output_conv2[2].bias.fill_(1.0)
@@ -1908,7 +2010,7 @@ def front_end_phase():
     print(f"  MASt3R {mcfg.enc_embed_dim}/{mcfg.enc_depth} encoder, {mcfg.dec_embed_dim}/"
           f"{mcfg.dec_depth} decoders: {sum(p.numel() for p in model.model.parameters()) / 1e6:.1f}M "
           f"parameters, seeded random weights; DepthAnything({LOOP_DA2!r}); See3D DDIM "
-          f"{SEE3D_SHAPE[3] + 1} timesteps; descriptors and pointmaps keyed on the surface "
+          f"{LOOP_SEE3D_STEPS} step(s); descriptors and pointmaps keyed on the surface "
           f"point (pixels on no surface per view: {empty})")
     print(f"  SAM ViT-H {scfg.encoder_dim}/{scfg.encoder_depth}/{scfg.encoder_heads} heads, "
           f"window {scfg.window_size}, {scfg.img_size} px: "
@@ -2032,7 +2134,8 @@ def front_end_phase():
             with open(os.path.join(src, "dense_view.json"), "w") as f:
                 json.dump({"train": FRONT_DENSE}, f)
             pipe = orch.G4SplatPipeline(orch.PipelineConfig(
-                source_path=src, output_path=out, sfm_config="posed", alignment_config="default",
+                source_path=src, output_path=out, sfm_config="posed",
+                alignment_config=FRONT_CHARTS,
                 use_multires_tsdf=True, n_see3d_stages=1, train_iterations=LOOP_ITERATIONS,
                 eval_split=FRONT_EVAL), priors, device=DEVICE)
             cfg = pipe.cfg
@@ -2217,6 +2320,9 @@ def front_end_phase():
                   f"point_cloud-ori, then the final point_cloud; the test renders, "
                   f"see3d_render/stage1 and the mesh")
             timing_log = list(pipe.timing_log)
+            # Phase 19's gate (vii): the export over three pairs of run()'s
+            # photos through the keyed model, here where it is alive.
+            matches = export_matches_run(model, st.images, tmp)
             pair = st.images[0:1], st.images[1:2]
             sam_pred._encode, sam_pred._decode = enc, dec
             SAM_.select_candidates, SAM_.nms_masks = sel_fn, nms_fn
@@ -2269,7 +2375,7 @@ def front_end_phase():
                 sfm_stats=sfm_runs[-1][1], chart_stats=chart_runs[-1][1], colmap_s=colmap_s,
                 launches=launches, peak=peak, run_s=run_s, timing_log=timing_log,
                 sam=sam_log, sam_prec=sam_prec, sam_peak=sam_peak, sam_writer=sam_pred,
-                discs=discs,
+                discs=discs, matches=matches,
                 phase_s=time.perf_counter() - t_phase)
 
 
@@ -2560,15 +2666,17 @@ def print_front_end(r):
           f"median {np.median(d['inst']):.1f}, max {max(d['inst'])}")
 
 
-def cli_phase(writer):
+def cli_phase(writer, work):
     """Phase 18: the command line as users start it, `python -m
     g4splat_torch.cli` (run in this process by `runpy`, so that the kernels'
     counters see its launches), on a source directory of photos and an npz
     zoo holding sam.npz alone (written from phase 17's full-width SAM
-    `writer` through `convert_torch_sam`), with gates (i)-(vi). Returns the
-    CLI's launches (B1, B2, B3)."""
+    `writer` through `convert_torch_sam`), with gates (i)-(vi), in the
+    directory `work`. Returns the CLI's launches (B1, B2, B3) and, for phase
+    19, its artifact store, its pipeline (the priors dropped) and the images
+    its files hold (the input views as render_chart_views wrote them, each
+    See3D stage's views as the stage wrote them)."""
     import runpy
-    import tempfile
     import traceback
 
     import torch
@@ -2588,7 +2696,7 @@ def cli_phase(writer):
     counters = (rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD,
                 attention_cuda.ATTENTION_FWD)
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(work) as tmp:
         src, zoo, out = (os.path.join(tmp, d) for d in ("source", "zoo", "out"))
         os.makedirs(os.path.join(src, "images"))
         os.makedirs(zoo)
@@ -2633,6 +2741,13 @@ def cli_phase(writer):
                                    and priors.depth_model is None
                                    and callable(priors.sam_generator))
             init(self, cfg, priors, *a, **kw)
+            seen["pipe"], written = self, seen.setdefault("written", [])
+            for name in ("render_chart_views", "see3d_stage"):
+                def record(*a, _fn=getattr(self, name), **kw):
+                    n = sum(len(w) for w in written)
+                    _fn(*a, **kw)
+                    written.append(self.state.images[n:].cpu())
+                setattr(self, name, record)
 
         args = ["-s", src, "-o", out, "--checkpoint_dir", zoo, *CLI_ARGS]
         print(f"  python3 -m g4splat_torch.cli {' '.join(args)}")
@@ -2712,7 +2827,394 @@ def cli_phase(writer):
           f"See3D in the zoo)")
     print(f"  launches in the CLI: B1 {launches[0]}, B2 {launches[1]}, B3 {launches[2]}")
     print(f"  phase 18 {time.perf_counter() - t_phase:.1f} s, the CLI {cli_s:.1f} s (host clock)")
-    return launches
+    pipe = seen.get("pipe")
+    if pipe is not None:
+        pipe.priors = orch.Priors()
+    written = seen.get("written", [])
+    return launches, dict(pipe=pipe, out=out,
+                          written=torch.cat(written) if written else None)
+
+
+def trainer_snapshot(t):
+    """Every tensor of a Trainer's state (scene, Adam, densify statistics)
+    cloned, and its bookkeeping (iteration, update counts, the view order,
+    both generators)."""
+    import torch
+
+    from g4splat_torch.train.trainer import PARAM_FIELDS
+
+    tensors = {f"scene.{k}": getattr(t.scene, k).detach().clone()
+               for k in (*PARAM_FIELDS, "alive", "mip_filter")}
+    for g in t.optimizer.param_groups:
+        for k, v in t.optimizer.state.get(g["params"][0], {}).items():
+            tensors[f"adam.{g['name']}.{k}"] = v.clone()
+    for k in ("grad_accum", "denom", "max_radii2d"):
+        tensors[f"dstate.{k}"] = getattr(t.dstate, k).clone()
+    tensors["generator"] = t.generator.get_state().clone()
+    meta = dict(iteration=t.iteration, sh=t.scene.active_sh_degree,
+                updates=[g["updates"] for g in t.optimizer.param_groups],
+                stack=list(t._stack), rng=t.rng.bit_generator.state)
+    return tensors, meta
+
+
+def resume_phase(cli, matches):
+    """Phase 19: resume and the shell on phase 18's artifact store, with
+    gates (i)-(viii) (matches: phase 17's `export_matches_run`, or None where
+    phase 17 did not run). Returns what the summary prints, the phase's B1
+    and B2 launches included."""
+    import tempfile
+
+    import torch
+
+    from g4splat_torch.cli import build_parser, build_priors
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.eval.synthetic import quality_run
+    from g4splat_torch.io.images import read_png, to_uint8
+    from g4splat_torch.ops import attention_cuda, rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.pipeline import orchestrator as orch
+    from g4splat_torch.pipeline.mesh_extraction import cameras_spatial_extent
+    from g4splat_torch.priors.depth_anything import DepthAnything
+    from g4splat_torch.train.checkpoint import load_trainer_state, save_trainer_state
+    from g4splat_torch.train.trainer import TrainConfig, Trainer, ViewData
+    from g4splat_torch.utils import profiling
+    from g4splat_torch.utils.viewer import ViewerServer, query_camera
+
+    fwd, bwd, att = (rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD,
+                     attention_cuda.ATTENTION_FWD)
+    times = {}
+
+    def launches():
+        return fwd.launches, bwd.launches
+
+    @contextlib.contextmanager
+    def timed(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+
+    pipe, out = cli["pipe"], cli["out"]
+    check(pipe is not None, "phase 18's CLI built a pipeline (its spy holds it)")
+    if pipe is None:
+        return dict(times=times, launches=(0, 0), quality={}, phase_s=0.0)
+    ref = pipe.state
+    torch.cuda.synchronize()
+    fwd.launches = bwd.launches = att.launches = 0
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (i) stage_done on the CLI's store, against the files themselves.
+        fresh = orch.G4SplatPipeline(pipe.cfg, orch.Priors(), device=DEVICE)
+        done = fresh.stage_done()
+        pr, n_stages = fresh.store.plane_root, pipe.cfg.n_see3d_stages
+        marker = {"sfm": os.path.join(fresh.store.sparse, "cameras.bin"),
+                  "charts": fresh.store.charts,
+                  "chart_views": os.path.join(pr, "visibility_frame000000.npy"),
+                  "planes": os.path.join(pr, "global_3Dplane_ID_dict.json"),
+                  "refine": os.path.join(pr, "refine_depth_frame000000.tiff"),
+                  "train": os.path.join(out, "free_gaussians", "point_cloud",
+                                        f"iteration_{pipe.cfg.train_iterations}",
+                                        "point_cloud.ply"),
+                  **{f"see3d_{k}": os.path.join(fresh.store.see3d_root,
+                                                f"stage{k}_see3d_cameras.npz")
+                     for k in range(1, n_stages + 1)}}
+        on_disk = {k: os.path.exists(p) for k, p in marker.items()}
+        check(done == on_disk and all(done.values()),
+              f"(i) stage_done on the CLI's store: {done}; every stage the CLI ran is done and "
+              f"each agrees with its file on disk")
+
+        # (ii) resume_from_artifacts in a fresh pipeline vs the CLI's state.
+        with timed("resume"):
+            done2 = fresh.resume_from_artifacts()
+        st = fresh.state
+        n_ref = ref.cameras.w2c.shape[0]
+        same_n = (st.cameras.w2c.shape[0] == n_ref and st.input_view_num == ref.input_view_num
+                  and st.images.shape == ref.images.shape)
+        d_w2c = float((st.cameras.w2c - ref.cameras.w2c).abs().max()) if same_n else float("inf")
+        d_img = (float((st.images.cpu() - cli["written"]).abs().max())
+                 if same_n and cli["written"] is not None
+                 and cli["written"].shape == st.images.shape else float("inf"))
+        d_state = float((st.images - ref.images).abs().max()) if same_n else float("nan")
+        depths_eq = same_n and bool(torch.equal(st.depths, ref.depths))
+        masks_eq = len(st.plane_masks) == len(ref.plane_masks) and all(
+            np.array_equal(a, b) for a, b in zip(st.plane_masks, ref.plane_masks))
+        plane_dict = {k: [tuple(x) for x in v] for k, v in ref.global_plane_dict.items()}
+        alive = ref.scene.alive
+        n_alive = int(alive.sum())
+        scene_eq = (st.scene is not None and int(st.scene.num_alive) == n_alive
+                    and bool(torch.equal(st.scene.xyz[:n_alive], ref.scene.xyz[alive])))
+        # A PNG truncates to 8 bits: each value comes back within 1/255 below,
+        # plus float32 rounding of the difference.
+        check(done2 == done and same_n and d_w2c <= 1e-5 and d_img <= 1 / 255 + 1e-6
+              and depths_eq and masks_eq and st.global_plane_dict == plane_dict and scene_eq,
+              f"(ii) resume_from_artifacts in {times['resume']:.2f} s: {st.cameras.w2c.shape[0]} "
+              f"cameras ({st.input_view_num} input) as the CLI's, max|w2c - CLI's| {d_w2c:.2e} "
+              f"<= 1e-5; images within 1/255 of the ones the CLI wrote (max {d_img:.2e}; the "
+              f"state's own differ by {d_state:.3f} after colour harmonisation, which both "
+              f"packages keep in memory only); depths {'equal' if depths_eq else 'DIFFER'}; "
+              f"{len(st.plane_masks)} plane masks {'equal' if masks_eq else 'DIFFER'}; global "
+              f"plane dict ({len(plane_dict)} planes) "
+              f"{'equal' if st.global_plane_dict == plane_dict else 'DIFFERS'}; scene xyz "
+              f"bit-equal to the final PLY and num_alive {n_alive}: {scene_eq}")
+        resumed = st.scene
+
+        # (iii) retrain from the resumed state inside profiling.trace.
+        losses, step = [], Trainer.step
+
+        def step_spy(self, sync_metrics=True):
+            m = step(self, sync_metrics)
+            losses.append(m["loss"])
+            return m
+
+        logdir = os.path.join(tmp, "trace")
+        c0 = launches()
+        Trainer.step = step_spy
+        try:
+            with timed("retrain"), profiling.trace(logdir):
+                with profiling.annotate("train_gaussians"):
+                    fresh.train_gaussians(LOOP_ITERATIONS)
+        finally:
+            Trainer.step = step
+        d_train = tuple(b - a for a, b in zip(c0, launches()))
+        traces = [f for f in os.listdir(logdir) if f.endswith(".json")] if os.path.isdir(
+            logdir) else []
+        events = []
+        if traces:
+            with open(os.path.join(logdir, traces[0])) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+
+        def named(fn):      # e.g. "void (anonymous namespace)::walk_kernel<false>(float4 ..."
+            return sum(bool(re.search(rf"\b{fn}[<(]", k)) for k in kernels)
+
+        b1_k = named("rasterize_fwd_kernel")
+        # B2's three launches: per-tile walk lengths, the tile order, the walk.
+        b2_k = tuple(named(n) for n in ("tile_walk_kernel", "tile_order_kernel", "walk_kernel"))
+        annotated = any(e.get("name") == "train_gaussians" for e in events)
+        ok_losses = len(losses) == LOOP_ITERATIONS and bool(torch.isfinite(
+            torch.as_tensor([float(x) for x in losses])).all())
+        check(d_train == (LOOP_ITERATIONS, LOOP_ITERATIONS) and ok_losses and b1_k > 0
+              and min(b2_k) > 0 and annotated,
+              f"(iii) train_gaussians({LOOP_ITERATIONS}) from the resumed state in "
+              f"{times['retrain']:.1f} s under profiling.trace: B1 {d_train[0]}, B2 {d_train[1]} "
+              f"launches (one each per step); losses finite "
+              f"({float(losses[0]) if losses else float('nan'):.4f} -> "
+              f"{float(losses[-1]) if losses else float('nan'):.4f}); the exported trace "
+              f"{traces} names the annotation, B1's kernel ({b1_k} events) and B2's "
+              f"tile_walk, tile_order and walk kernels ({b2_k}) among {len(kernels)} kernel "
+              f"events")
+        c0 = launches()
+        with timed("render_all"):
+            fresh.render_all()
+        d_ra = launches()[0] - c0[0]
+        it = pipe.cfg.train_iterations
+        shown = sorted(os.listdir(fresh.store.renders_dir("train", it)))
+        check(d_ra == st.input_view_num and len(shown) == st.input_view_num,
+              f"(iii) render_all over the resumed cameras in {times['render_all']:.2f} s: B1 "
+              f"{d_ra} launches, {len(shown)} PNGs ({st.input_view_num} views)")
+
+        # (iv) a Trainer on the resumed scene: checkpoint and exact resume.
+        extent = max(cameras_spatial_extent(st.cameras), 1e-3)
+        tcfg = TrainConfig(spatial_lr_scale=extent)
+        views = ViewData(image=st.images, prior_depth=st.depths, prior_normal=st.normals,
+                         prior_curv=st.curvs, confidence=st.confidences,
+                         color_weight=st.color_weights,
+                         scale_factor=torch.tensor(10.0, device=DEVICE))
+
+        def trainer():
+            t = Trainer(resumed, st.cameras, views, tcfg, seed=5)
+            picked, pick = [], t._next_view
+
+            def spy():
+                picked.append(pick())
+                return picked[-1]
+            t._next_view = spy
+            return t, picked
+
+        ckpt = os.path.join(tmp, "trainer.npz")
+        with timed("checkpoint"):
+            a, a_views = trainer()
+            for _ in range(CKPT_STEPS):
+                a.step()
+            save_trainer_state(ckpt, a)
+            saved = trainer_snapshot(a)
+            a.step()
+            after_one = {k: v.detach().clone() for k, v in a.params.items()}
+            for _ in range(CKPT_STEPS - 1):
+                a.step()
+            b, b_views = trainer()
+            load_trainer_state(ckpt, b)
+            loaded = trainer_snapshot(b)
+            b.step()
+            rel = {k: float((b.params[k].detach() - after_one[k]).abs().max())
+                   / max(float(after_one[k].abs().max()), 1e-30) for k in after_one}
+            for _ in range(CKPT_STEPS - 1):
+                b.step()
+        bits = (sorted(saved[0]) == sorted(loaded[0]) and saved[1] == loaded[1] and all(
+            torch.equal(saved[0][k], loaded[0][k]) for k in saved[0]))
+        check(bits and b_views == a_views[CKPT_STEPS:] and max(rel.values()) <= CKPT_REL,
+              f"(iv) Trainer on the resumed scene ({n_alive} splats, the production "
+              f"TrainConfig): {CKPT_STEPS} steps, save_trainer_state "
+              f"({os.path.getsize(ckpt) / 2**20:.1f} MiB), {CKPT_STEPS} more; a fresh Trainer's "
+              f"load_trainer_state gives all {len(saved[0])} saved tensors bit-equal on the card "
+              f"and the same iteration, update counts, view order and generators: {bits}; its "
+              f"next {CKPT_STEPS} views {b_views} equal the uninterrupted trainer's "
+              f"{a_views[CKPT_STEPS:]} (C24); after its first step every parameter within "
+              f"{CKPT_REL} * max|param| of the uninterrupted trainer's (B2's atomics, C9): "
+              + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+              + f"; {times['checkpoint']:.1f} s")
+        del a, b, saved, loaded, after_one
+
+        # (v) the viewer over the resumed scene.
+        cam0 = camera_at(st.cameras, 0)
+        eye = cam0.center
+        target = eye + cam0.w2c[2, :3]
+        q = {"eye": [",".join(f"{float(x):.6f}" for x in eye)],
+             "target": [",".join(f"{float(x):.6f}" for x in target)],
+             "w": ["512"], "h": ["384"], "fov": ["60"]}
+        query = "&".join(f"{k}={v[0]}" for k, v in q.items())
+        server = ViewerServer(lambda: resumed, port=0).start()
+        paths = {"rgb": f"/render?{query}", "info": "/info",
+                 "depth": f"/render?{query}&mode=depth",
+                 "normal": f"/render?{query}&mode=normal", "unknown": "/nope"}
+        got, c0 = {}, launches()
+        try:
+            with timed("viewer"):
+                for name, path in paths.items():
+                    got[name] = http_get(server.port, path)
+        finally:
+            server.stop()
+        d_view = launches()[0] - c0[0]
+        codes = {name: c for name, (c, _) in got.items()}
+        status, png = got["rgb"]
+        img = None
+        if status == 200:
+            pngfile = os.path.join(tmp, "viewer.png")
+            with open(pngfile, "wb") as f:
+                f.write(png)
+            img = read_png(pngfile)
+        with torch.no_grad():
+            want = to_uint8(render(query_camera(q, DEVICE), resumed, backend="cuda")["render"])
+        diff = (int(np.abs(img.astype(np.int16) - want.astype(np.int16)).max())
+                if img is not None and img.shape == want.shape else None)
+        info = json.loads(got["info"][1]) if codes["info"] == 200 else {}
+        want_info = {"n_alive": n_alive, "capacity": resumed.capacity,
+                     "sh_degree": resumed.active_sh_degree}
+        check(codes == {"rgb": 200, "info": 200, "depth": 200, "normal": 200, "unknown": 404}
+              and diff is not None and diff <= 1 and info == want_info and d_view == 3,
+              f"(v) ViewerServer on 127.0.0.1:{server.port} (ephemeral) over the resumed "
+              f"scene, status by request: {codes}; /render's 512x384 PNG vs the 8-bit render() "
+              f"of the same look-at "
+              f"camera: max |d| {diff} level(s) <= 1; /info {info}; B1 {d_view} launches (3 "
+              f"renders); {times['viewer']:.2f} s")
+
+        # (vi) quality_run at the JAX package's gate.
+        qdir = os.path.join(tmp, "quality")
+        c0 = launches()
+        with timed("quality_run"):
+            quality = quality_run(qdir, backend="cuda", device=DEVICE, **QUALITY_ARGS)
+        d_q = tuple(b - a for a, b in zip(c0, launches()))
+        passed = all((quality.get(k, float("nan")) > v) if op == ">" else
+                     (quality.get(k, float("nan")) < v) for k, (op, v) in QUALITY_GATE.items())
+        check(passed and d_q[1] == QUALITY_ARGS["train_iters"] and d_q[0] > d_q[1],
+              f"(vi) quality_run({QUALITY_ARGS}) on the card in {times['quality_run']:.1f} s: "
+              + ", ".join(f"{k} {quality.get(k, float('nan')):.4f} ({op} {v}; the JAX package's "
+                          f"CPU calibration {QUALITY_CPU[k]})"
+                          for k, (op, v) in QUALITY_GATE.items())
+              + f"; B1 {d_q[0]}, B2 {d_q[1]} launches (one B2 per step)")
+
+        # (vii) phase 17's matches export.
+        if matches is None:
+            print("  (vii) not run: phase 17 did not run in this process")
+        else:
+            npz, want, loaded = matches["npz"], matches["want"], matches["loaded"]
+            offs = npz.get("offsets", np.zeros(1, np.int32))
+            ok = (sorted(npz) == ["conf", "offsets", "pair_i", "pair_j", "xy1", "xy2"]
+                  and list(zip(npz["pair_i"], npz["pair_j"])) == MATCH_PAIRS
+                  and len(want) == len(MATCH_PAIRS) == len(loaded))
+            counts = []
+            for k in range(len(want) if ok else 0):
+                s_, e_ = offs[k], offs[k + 1]
+                w1, w2, wc = want[k]
+                counts.append(int(e_ - s_))
+                ok &= (np.array_equal(npz["xy1"][s_:e_], w1)
+                       and np.array_equal(npz["xy2"][s_:e_], w2)
+                       and np.array_equal(npz["conf"][s_:e_], wc) and e_ > s_
+                       and (loaded[k]["i"], loaded[k]["j"]) == MATCH_PAIRS[k]
+                       and all(np.array_equal(loaded[k][n], npz[n][s_:e_])
+                               for n in ("xy1", "xy2", "conf")))
+            check(ok, f"(vii) compute_and_export_matches over pairs {MATCH_PAIRS} of run()'s "
+                      f"photos ({matches['shape'][1]}x{matches['shape'][0]}) through phase 17's "
+                      f"full-width MASt3R, keyed on the surface, in {matches['export_s']:.2f} s: "
+                      f"the npz's keys, pairs and {counts} matches equal plain_grid_matches on "
+                      f"the same descriptors (xy exact, conf bit-equal), and load_matches "
+                      f"round-trips it")
+
+        # (viii) the zoo writer on an official-named DA2 checkpoint.
+        src, zoo = os.path.join(tmp, "ckpts"), os.path.join(tmp, "zoo")
+        ck = os.path.join(src, "Depth-Anything-V2", "checkpoints")
+        os.makedirs(ck)
+        with timed("zoo"):
+            seeded = DepthAnything(ZOO_DA2, seed=13, device=DEVICE)
+            with torch.no_grad():       # as phase 16: a disparity that varies
+                seeded.model.depth_head.scratch.output_conv2[2].bias.fill_(1.0)
+            torch.save({k: v.cpu() for k, v in seeded.model.state_dict().items()},
+                       os.path.join(ck, f"depth_anything_v2_{ZOO_DA2}.pth"))
+            argv = sys.argv
+            sys.argv = ["g4splat_torch.zoo", "--src", src, "--dst", zoo, "--only",
+                        "depth_anything_v2"]
+            try:
+                import runpy
+
+                runpy.run_module("g4splat_torch.zoo", run_name="__main__", alter_sys=True)
+                rc = 0
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+            finally:
+                sys.argv = argv
+            priors = build_priors(build_parser().parse_args(["-s", src, "--checkpoint_dir",
+                                                             zoo]), device=DEVICE)
+            two = st.images[:2]
+            built = priors.depth_model
+            same = (rc == 0 and built is not None and built.encoder == ZOO_DA2
+                    and priors.mast3r is None and priors.sam_generator is None)
+            if same:
+                d_built, d_seed = built.infer_images(two), seeded.infer_images(two)
+                same = bool(torch.equal(d_built, d_seed)) and float(d_seed.abs().max()) > 0
+        check(same, f"(viii) python -m g4splat_torch.zoo --only depth_anything_v2 (in this "
+                    f"process, rc {rc}) on an official-named seeded DepthAnythingV2("
+                    f"{ZOO_DA2!r}) checkpoint, then build_priors on the zoo: depth on two "
+                    f"resumed views bit-equal to the seeded model's; no other prior; "
+                    f"{times['zoo']:.1f} s")
+        del seeded, priors, built
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    return dict(times=times, launches=launches(), quality=quality, phase_s=phase_s)
+
+
+def http_get(port, path):
+    """(status, body) of a GET on 127.0.0.1:port; an HTTP error's status too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def print_resume(r):
+    """Phase 19's numbers."""
+    print("  host-clock s (synchronized): " + ", ".join(f"{k} {v:.3f}"
+                                                       for k, v in r["times"].items()))
+    q = r["quality"]
+    print("  quality_run on the card: " + ", ".join(
+        f"{k} {q.get(k, float('nan')):.4f} (CPU calibration {QUALITY_CPU[k]})"
+        for k in QUALITY_GATE) + "; stages s " + json.dumps(q.get("timings", {})))
+    b1, b2 = r["launches"]
+    print(f"  launches in phase 19: B1 {b1}, B2 {b2}; phase 19 {r['phase_s']:.1f} s (host clock)")
 
 
 def print_mesh_timings(r):
@@ -2741,6 +3243,8 @@ def print_mesh_timings(r):
 
 
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3154,7 +3658,7 @@ def main():
 
     print(f"== phase 16: one See3D loop through G4SplatPipeline, full width ({LOOP_DA2} "
           f"DepthAnything V2, MVDream See3D), production PipelineConfig save "
-          f"{LOOP_ITERATIONS} steps per train_gaussians and {SEE3D_SHAPE[3] + 1} DDIM timesteps")
+          f"{LOOP_ITERATIONS} steps per train_gaussians and {LOOP_SEE3D_STEPS} DDIM step(s)")
     loop16 = see3d_loop_phase()
     print_see3d_loop(loop16)
     torch.cuda.empty_cache()
@@ -3169,7 +3673,17 @@ def main():
     print(f"== phase 18: python -m g4splat_torch.cli on {CLI_VIEWS[0]} photos at "
           f"{CLI_VIEWS[1]}x{CLI_VIEWS[2]} and an npz zoo holding sam.npz alone (SAM at full "
           f"width, the other priors absent); {smi}")
-    launches18 = cli_phase(front17.pop("sam_writer"))
+    with tempfile.TemporaryDirectory() as work:
+        launches18, cli18 = cli_phase(front17.pop("sam_writer"), work)
+        torch.cuda.empty_cache()
+
+        print(f"== phase 19: resume and the shell on phase 18's artifact store: stage_done, "
+              f"resume_from_artifacts, a retrain under profiling.trace, a trainer checkpoint, "
+              f"the viewer, quality_run, the matches export, the zoo writer; {smi}")
+        resume19 = resume_phase(cli18, front17.get("matches"))
+        print_resume(resume19)
+        del cli18
+    torch.cuda.empty_cache()
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -3192,12 +3706,13 @@ def main():
     print(json.dumps({"kernels": [
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
          "launches": launches + launches8[0] + launches13 + mesh14["launches"]
-                     + loop16["launches"][0] + front17["launches"][0] + launches18[0],
+                     + loop16["launches"][0] + front17["launches"][0] + launches18[0]
+                     + resume19["launches"][0],
          "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
          "launches": launches8[1] + loop16["launches"][1] + front17["launches"][1]
-                     + launches18[1],
+                     + launches18[1] + resume19["launches"][1],
          "max_abs_err": max_abs_err_bwd,
          "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},

@@ -231,11 +231,11 @@ def build_priors(args, device: DeviceLike = None):
         params, cfg = _load_npz(p)
         cfg = dict(cfg or {})
         pad_id = int(cfg.pop("pad_id", 0))
-        cfg.pop("max_positions", None)      # the forward reads the first n_ctx rows
-        if cfg.pop("act", "gelu") != "gelu":
-            raise ValueError(f"{p}: the port's CLIPText has exact GELU only")
         sd = convert.flax_state_dict(params)
-        sd["pos_embed"] = sd["pos_embed"][:cfg.get("n_ctx", 77)]
+        # The tables as the checkpoint holds them (the JAX tower reads the
+        # first n_ctx rows of any position table, and any vocabulary).
+        cfg.setdefault("vocab_size", sd["token_embedding"].shape[0])
+        cfg.setdefault("max_positions", sd["pos_embed"].shape[0])
         priors.text_embedder = CLIPTextEmbedder(model=built(lambda: CLIPText(**cfg), sd),
                                                 pad_id=pad_id)
 

@@ -14,7 +14,8 @@ dicts of the port's modules of the same names; `depth_anything_state_dict`
 does the same for `DepthAnythingV2`, and `mast3r_state_dict` for
 `AsymmetricMASt3R`, and `sam_state_dict` for SAM's npz zoo tree, whose
 names follow the reference torch checkpoints instead. `chart_params_from`
-carries the chart-alignment init.
+carries the chart-alignment init. `trainer_state_from_jax` restores a port
+`Trainer` from the JAX package's trainer checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import torch
 from g4splat_torch.core.cameras import Camera, make_camera
 from g4splat_torch.device import DeviceLike, resolve_device
 from g4splat_torch.models.gaussians import GaussianScene
+from g4splat_torch.train.checkpoint import (DSTATE_FIELDS, SCENE_FIELDS, read_meta,
+                                           restore_trainer)
 from g4splat_torch.train.trainer import TrainConfig, ViewData
 
 SCENE_ARRAYS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw",
@@ -334,3 +337,44 @@ def chart_params_from(params, device: DeviceLike = None) -> Dict:
     return {"enc": [f32(g) for g in params["enc"]], "denc": f32(params["denc"]),
             "mlp": [{"w": f32(l["w"]), "b": f32(l["b"])} for l in params["mlp"]],
             "conf_raw": f32(params["conf_raw"])}
+
+
+_JAX_ADAM = re.compile(r"opt\|\.inner_states/\['(\w+)'\]/\.inner_state/\[(\d)\]/\.(\w+)")
+
+
+def trainer_state_from_jax(path: str, trainer) -> None:
+    """Restore the port's `trainer` in place from an npz that the JAX
+    package's `save_trainer_state` wrote: the scene buffers, optax's Adam
+    state per group (`mu` → `exp_avg`, `nu` → `exp_avg_sq`, `count` →
+    `step`; the xyz schedule's count → the group's update count), the
+    densify statistics, the iteration and the SH degree. The trainer must
+    have the file's capacity (ValueError otherwise).
+
+    The file's JAX PRNG key has no torch counterpart, and the file stores no
+    view order (ROADMAP C24): the trainer's numpy generator, pending
+    permutation and torch generator restart from the trainer's seed."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = read_meta(data)
+        if meta["capacity"] != trainer.scene.capacity:
+            raise ValueError(f"capacity mismatch: checkpoint {meta['capacity']}, "
+                             f"trainer {trainer.scene.capacity}")
+        adam: Dict[str, Dict[str, np.ndarray]] = {}
+        schedule: Dict[str, int] = {}
+        for k in data.files:
+            m = _JAX_ADAM.match(k)
+            if m is None:
+                continue
+            name, slot, leaf = m.groups()
+            if slot == "0":             # scale_by_adam's state
+                key = {"mu": "exp_avg", "nu": "exp_avg_sq", "count": "step"}[leaf]
+                adam.setdefault(name, {})[key] = data[k]
+            else:                       # the xyz group's scale_by_schedule count
+                schedule[name] = int(data[k])
+        updates = {name: int(a["step"]) for name, a in adam.items()}
+        updates.update(schedule)
+        restore_trainer(trainer, {f: data[f"scene|['{f}']"] for f in SCENE_FIELDS}, adam,
+                        updates, {f: data[f"dstate|.{f}"] for f in DSTATE_FIELDS},
+                        meta["iteration"], meta["active_sh_degree"], meta["use_mip_filter"])
+    trainer.rng = np.random.default_rng(trainer.seed)
+    trainer._stack = []
+    trainer.generator.manual_seed(trainer.seed)

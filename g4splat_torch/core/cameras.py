@@ -15,6 +15,7 @@ A batch of cameras is a `Camera` whose tensors carry a leading batch axis
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -63,6 +64,25 @@ class Camera:
     def center(self) -> torch.Tensor:
         """(…, 3) camera origin in world space."""
         return self.c2w[..., :3, 3]
+
+    # ------------------------------------------------------------- intrinsics
+    @property
+    def K(self) -> torch.Tensor:
+        """(…, 3, 3) pixel intrinsics matrix."""
+        z, o = torch.zeros_like(self.fx), torch.ones_like(self.fx)
+        return torch.stack([torch.stack([self.fx, z, self.cx], dim=-1),
+                            torch.stack([z, self.fy, self.cy], dim=-1),
+                            torch.stack([z, z, o], dim=-1)], dim=-2)
+
+    @property
+    def tanfov(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tan(fovx/2), tan(fovy/2))."""
+        return self.width / (2.0 * self.fx), self.height / (2.0 * self.fy)
+
+    @property
+    def fov(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        tx, ty = self.tanfov
+        return 2.0 * torch.arctan(tx), 2.0 * torch.arctan(ty)
 
     # ------------------------------------------------------------ projections
     @property
@@ -168,6 +188,14 @@ def make_camera(
     return Camera(w2c=f32(w2c), fx=f32(fx), fy=f32(fy), cx=f32(cx), cy=f32(cy),
                   width=int(width), height=int(height), znear=float(znear),
                   zfar=float(zfar))
+
+
+def make_camera_from_fov(w2c, fov_x: float, fov_y: float, width: int, height: int,
+                         **kw) -> Camera:
+    """Reference-style constructor: centred principal point, fov in radians."""
+    fx = width / (2.0 * math.tan(fov_x / 2.0))
+    fy = height / (2.0 * math.tan(fov_y / 2.0))
+    return make_camera(w2c, fx, fy, (width - 1) / 2.0, (height - 1) / 2.0, width, height, **kw)
 
 
 def stack_cameras(cams) -> Camera:

@@ -8,6 +8,11 @@ from g4splat_torch.core.cameras import Camera
 from g4splat_torch.core.transforms import normalize
 
 
+def depth_to_points(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
+    """(H, W) view-z depth → (H, W, 3) world points."""
+    return cam.backproject(depth)
+
+
 def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     """(H, W) depth → (H, W, 3) world normals via central differences of the
     backprojected point map (reference point_utils.py:26-39), zero on the
@@ -17,6 +22,34 @@ def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     dy = pts[1:-1, 2:] - pts[1:-1, :-2]   # d/d_col
     n = normalize(torch.linalg.cross(dx, dy))
     return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def shift(a: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
+    """`a` rolled by (dr, dc) over its first two axes (wrapping around)."""
+    return torch.roll(a, (dr, dc), dims=(0, 1))
+
+
+def normal_to_curvature(normal: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) normal map → (H, W) curvature proxy: 1 − the mean cosine
+    to the 4-neighbourhood, clipped to [0, 2], zero on the 1-pixel border.
+    This is the JAX package's `core.geometry` proxy; the trainer's prior
+    curvature is `train.losses.normal_to_curvature` (matcha's L1 of the
+    neighbour differences), a different function."""
+    sims = [torch.sum(normal * shift(normal, dr, dc), dim=-1)
+            for dr, dc in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+    curv = 1.0 - torch.clamp(torch.stack(sims).mean(0), -1.0, 1.0)
+    curv[0, :] = curv[-1, :] = 0.0
+    curv[:, 0] = curv[:, -1] = 0.0
+    return curv
+
+
+def image_gradient(img: torch.Tensor) -> torch.Tensor:
+    """(H, W[, C]) → (H, W[, C], 2) central-difference gradients (d_row,
+    d_col), zero on the border rows / columns."""
+    gr, gc = torch.zeros_like(img), torch.zeros_like(img)
+    gr[1:-1] = (img[2:] - img[:-2]) * 0.5
+    gc[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
+    return torch.stack([gr, gc], dim=-1)
 
 
 def points_to_depth(cam: Camera, pts_world: torch.Tensor) -> torch.Tensor:

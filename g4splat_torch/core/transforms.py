@@ -58,3 +58,31 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 4)))
     q = normalize(q.squeeze(-2))
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions (broadcasting)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def homogenize(p: torch.Tensor) -> torch.Tensor:
+    """(…, 3) → (…, 4) with a trailing 1."""
+    return torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+
+
+def transform_points(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A 4x4 column-vector transform's affine part applied to (…, 3) points."""
+    return p @ m[:3, :3].T + m[:3, 3]
+
+
+def project_points(m: torch.Tensor, p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """A 4x4 projective transform applied to (…, 3) points, with the w-divide."""
+    ph = homogenize(p) @ m.T
+    return ph[..., :3] / (ph[..., 3:4] + eps)

@@ -7,13 +7,15 @@ together with the exact GT triangle mesh of those surfaces;
 `room_cameras()` a ring of cameras inside the room; `cull_mesh_to_views()`
 the part of the GT mesh the cameras see. The arrays come from
 `np.random.RandomState(seed)` and numpy, as in the JAX package, so both
-packages build the same room. `quality_run` (the posed pipeline tail on this
-room) waits for the pipeline shell.
+packages build the same room. `quality_run` runs the posed pipeline tail on
+this room and returns its held-out image metrics and the mesh's Chamfer
+distance, the repo's end-to-end quality gate (tests/test_quality.py).
 """
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from g4splat_torch.core.cameras import lookat_camera, stack_cameras
 from g4splat_torch.device import DeviceLike
@@ -184,3 +186,73 @@ def room_cameras(n: int, width: int, height: int, device: DeviceLike = None):
         cams.append(lookat_camera(eye, tgt, [0, -1, 0], fx=width * 0.85, fy=width * 0.85,
                                   width=width, height=height, device=device))
     return stack_cameras(cams)
+
+
+def quality_run(out_dir: str,
+                res: int = 128,
+                n_views: int = 8,
+                eval_split: Sequence[int] = (2, 5),
+                train_iters: int = 600,
+                backend: str = "cuda",
+                tsdf_resolution: int = 96,
+                points_per_m2: int = 9000,
+                extra_cfg: Optional[Dict] = None,
+                device: DeviceLike = None) -> Dict:
+    """The posed pipeline tail on `box_room(points_per_m2)`: `n_views`
+    `room_cameras` at res × 3/4·res render the inputs (and their surface
+    depths, 3.2 where no surface is hit, as the chart init); the
+    `eval_split` views are held out; then charts, planes, refined depths,
+    `train_gaussians(train_iters)`, the multires TSDF mesh and `evaluate`
+    against the GT mesh culled to the training views. Returns the results
+    dict (held-out Average-PSNR/SSIM/LPIPS, the mesh metrics) with the
+    stages' seconds under "timings". Runs on `device` (the card by default)
+    with the given render backend, as the JAX package's `quality_run`."""
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.pipeline.orchestrator import G4SplatPipeline, PipelineConfig, Priors
+
+    W, H = res, res * 3 // 4
+    gt, gt_mesh = box_room(points_per_m2=points_per_m2, device=device)
+    cameras = room_cameras(n_views, W, H, device=device)
+    imgs, depths = [], []
+    with torch.no_grad():
+        for i in range(n_views):
+            out = render(camera_at(cameras, i), gt, backend=backend)
+            imgs.append(out["render"])
+            d = out["surf_depth"].clone()
+            d[d <= 0] = 3.2
+            depths.append(d)
+    images, depths = torch.stack(imgs), torch.stack(depths)
+
+    cfg = PipelineConfig(
+        source_path="synthetic-box-room",
+        output_path=out_dir,
+        sfm_config="posed",
+        train_iterations=train_iters,
+        n_see3d_stages=0,          # no generative priors in the gate
+        render_backend=backend,
+        use_multires_tsdf=True,
+        tsdf_resolution=tsdf_resolution,
+        eval_split=list(eval_split),
+        vis_grid_resolution=0,
+        **(extra_cfg or {}),
+    )
+    pipe = G4SplatPipeline(cfg, Priors(), device=device)
+    pipe.load_inputs(images, cameras)
+    train_ids = [i for i in range(n_views) if i not in set(eval_split)]
+    pipe.state.prior_depths = depths[train_ids].clone()
+    pipe.state.depths = depths[train_ids].clone()
+
+    pipe.align_charts()
+    pipe.render_chart_views()
+    pipe.excavate_planes()
+    pipe.refine_plane_depths()
+    pipe.train_gaussians()
+    # Chamfer against the part the training cameras see: surfaces no
+    # training camera sees are not reconstruction failures.
+    train_cams = stack_cameras([camera_at(cameras, i) for i in train_ids])
+    culled = cull_mesh_to_views(gt_mesh[0], gt_mesh[1], train_cams,
+                                depths[train_ids].cpu().numpy())
+    results = pipe.evaluate(gt_mesh=culled)
+    results["timings"] = {k: round(v, 2) for k, v in pipe.timings.items()}
+    return results

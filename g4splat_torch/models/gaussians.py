@@ -19,11 +19,28 @@ import numpy as np
 import torch
 
 from g4splat_torch.core import sh as sh_lib
-from g4splat_torch.core.transforms import quat_to_rotmat
+from g4splat_torch.core.transforms import normalize, quat_to_rotmat
 from g4splat_torch.device import DeviceLike, resolve_device
 
 _TENSOR_FIELDS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw",
                   "rotation_raw", "alive", "mip_filter")
+
+
+def per_cam(xyz: torch.Tensor, cameras, znear: float = 0.2):
+    """Each camera's view of the points for the mip filter: (V, N) view depth
+    where the point lies in front of `znear` and within 15 % of the image
+    beyond its borders (inf elsewhere), and that mask. `cameras` is a
+    batched Camera."""
+    w2c = cameras.w2c                                            # (V, 4, 4)
+    p_cam = torch.einsum("vij,nj->vni", w2c[:, :3, :3], xyz) + w2c[:, None, :3, 3]
+    z = torch.clamp(p_cam[..., 2], min=1e-3)                     # (V, N)
+    width, height = float(cameras.width), float(cameras.height)
+    x = p_cam[..., 0] / z * cameras.fx[:, None] + width / 2.0
+    y = p_cam[..., 1] / z * cameras.fy[:, None] + height / 2.0
+    in_screen = ((x >= -0.15 * width) & (x <= 1.15 * width)
+                 & (y >= -0.15 * height) & (y <= 1.15 * height))
+    valid = (p_cam[..., 2] > znear) & in_screen
+    return torch.where(valid, z, torch.inf), valid
 
 
 @dataclass(frozen=True)
@@ -81,6 +98,10 @@ class GaussianScene:
             o = o * torch.sqrt(det1 / torch.clamp(det2, min=1e-30))[..., None]
         return o * self.alive[..., None]
 
+    def rotation(self) -> torch.Tensor:
+        """(N, 4) unit wxyz quaternions."""
+        return normalize(self.rotation_raw)
+
     def rotmats(self) -> torch.Tensor:
         """(N, 3, 3); columns 0, 1 are the tangent axes, column 2 the normal."""
         return quat_to_rotmat(self.rotation_raw)
@@ -88,6 +109,15 @@ class GaussianScene:
     def features(self) -> torch.Tensor:
         """(N, K, 3) concatenated SH coefficients."""
         return torch.cat([self.f_dc, self.f_rest], dim=1)
+
+    def normals(self) -> torch.Tensor:
+        """(N, 3) world normals (the rotation's third column)."""
+        return self.rotmats()[..., :, 2]
+
+    def colors(self, camera_center: torch.Tensor) -> torch.Tensor:
+        """(N, 3) view-dependent RGB from the active SH degree."""
+        dirs = normalize(self.xyz - camera_center)
+        return sh_lib.sh_to_rgb(self.active_sh_degree, self.features(), dirs)
 
     # --------------------------------------------------------------- editing
     def one_up_sh_degree(self) -> "GaussianScene":
@@ -106,16 +136,8 @@ class GaussianScene:
         """Per-splat screen-space low-pass scale: min view depth / max focal ×
         sqrt(filter_variance) over all cameras seeing the splat
         (gaussian_model.py:388-434). `cameras` is a batched Camera."""
-        w2c = cameras.w2c                                        # (V, 4, 4)
-        p_cam = torch.einsum("vij,nj->vni", w2c[:, :3, :3], self.xyz) + w2c[:, None, :3, 3]
-        z = torch.clamp(p_cam[..., 2], min=1e-3)                 # (V, N)
-        width, height = float(cameras.width), float(cameras.height)
-        x = p_cam[..., 0] / z * cameras.fx[:, None] + width / 2.0
-        y = p_cam[..., 1] / z * cameras.fy[:, None] + height / 2.0
-        in_screen = ((x >= -0.15 * width) & (x <= 1.15 * width)
-                     & (y >= -0.15 * height) & (y <= 1.15 * height))
-        valid = (p_cam[..., 2] > znear) & in_screen
-        distance = torch.where(valid, z, torch.inf).amin(dim=0)
+        dists, valid = per_cam(self.xyz, cameras, znear)
+        distance = dists.amin(dim=0)
         seen = valid.any(dim=0)
         # Unseen splats get the max distance among seen ones.
         fallback = torch.where(seen, distance, -torch.inf).max()

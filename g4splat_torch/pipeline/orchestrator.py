@@ -18,8 +18,10 @@ points.ply, cameras.json, pointmaps/, charts_data.npz,
 plane-refine-depths/ file zoo, see3d_render/stage{k}, see3d_cameras.npz,
 point_cloud/iteration_N/point_cloud.ply, renders, the mesh, result_iter_N).
 Maps stay on the device until they are written; PNG, TIFF and NPY writes
-are encoded on the I/O thread pool. The view fan-out over several devices,
-resume and the CLI are not part of this module.
+are encoded on the I/O thread pool. `stage_done` reads which stages an
+earlier run finished from those files, and `resume_from_artifacts` rebuilds
+the state from them, so that a stage can run again on a fresh pipeline. The
+view fan-out over several devices and the CLI are not part of this module.
 """
 
 from __future__ import annotations
@@ -1017,6 +1019,112 @@ class G4SplatPipeline:
                                              _host(gt_mesh[1])))
         write_results(self.cfg.output_path, it, results)
         return results
+
+    # -------------------------------------------------------------- re-entry
+    def stage_done(self) -> Dict[str, bool]:
+        """Which stages the artifact store holds the output of, keyed as the
+        JAX package keys them (the reference's file idempotence: a stage
+        script reruns from its upstream files, SURVEY §5.3)."""
+        pr = self.store.plane_root
+        done = {
+            "sfm": os.path.exists(os.path.join(self.store.sparse, "cameras.bin")),
+            "charts": os.path.exists(self.store.charts),
+            "chart_views": os.path.exists(os.path.join(pr, "visibility_frame000000.npy")),
+            "planes": os.path.exists(os.path.join(pr, "global_3Dplane_ID_dict.json")),
+            "refine": os.path.exists(os.path.join(pr, "refine_depth_frame000000.tiff")),
+            "train": os.path.exists(self._ply_path()),
+        }
+        for k in range(1, self.cfg.n_see3d_stages + 1):
+            done[f"see3d_{k}"] = os.path.exists(os.path.join(
+                self.store.see3d_root, f"stage{k}_see3d_cameras.npz"))
+        return done
+
+    def _ply_path(self) -> str:
+        return os.path.join(self.store.gaussians, "point_cloud",
+                            f"iteration_{self.cfg.train_iterations}", "point_cloud.ply")
+
+    def resume_from_artifacts(self) -> Dict[str, bool]:
+        """Rebuild the state, on the pipeline's device, from the artifact
+        store as far as its files go, and return `stage_done`: the COLMAP
+        cameras and the cumulative See3D cameras, the views' images, refined
+        (else chart) depths, prior depths, world normals (curvatures derived),
+        confidence maps, plane masks, the global plane dict and the anchor
+        views, the colour weights, the pixel → point ids, the latest
+        `point_cloud.ply` and the charts' scale factor."""
+        from g4splat_torch.io.images import load_depth_tiff, load_image, load_mask_png
+        from g4splat_torch.io.ply import load_gaussian_ply
+
+        st = self.state
+        pr = self.store.plane_root
+        done = self.stage_done()
+        if not done["sfm"]:
+            return done
+        cams_meta, imgs_meta, _ = colmap_io.read_model(self.store.sparse)
+        cam_list = [c for _, c in colmap_io.to_framework_cameras(cams_meta, imgs_meta,
+                                                                  device=self.device)]
+        st.input_view_num = len(cam_list)
+        cum_path = os.path.join(self.store.see3d_root, "see3d_cameras.npz")
+        if os.path.exists(cum_path):
+            cum = dict(np.load(cum_path))
+            for i in range(int(cum["n_views"])):
+                Wn, Hn = int(cum[f"image_width_{i:06d}"]), int(cum[f"image_height_{i:06d}"])
+                fx = Wn / (2.0 * math.tan(float(cum[f"FoVx_{i:06d}"]) / 2))
+                fy = Hn / (2.0 * math.tan(float(cum[f"FoVy_{i:06d}"]) / 2))
+                w2c = np.eye(4, dtype=np.float32)
+                w2c[:3, :3] = np.asarray(cum[f"R_{i:06d}"]).T
+                w2c[:3, 3] = np.asarray(cum[f"T_{i:06d}"])
+                cam_list.append(make_camera(w2c, fx, fy, (Wn - 1) / 2, (Hn - 1) / 2, Wn, Hn,
+                                            device=self.device))
+        st.cameras = stack_cameras(cam_list)
+        V = len(cam_list)
+
+        def per_view(fmt, loader):
+            paths = [os.path.join(pr, fmt.format(v)) for v in range(V)]
+            if all(os.path.exists(p) for p in paths):
+                return self._tensor(np.stack([loader(p) for p in paths]))
+            return None
+
+        st.images = per_view("rgb_frame{:06d}.png", load_image)
+        refined = per_view("refine_depth_frame{:06d}.tiff", load_depth_tiff)
+        st.depths = (refined if refined is not None
+                     else per_view("depth_frame{:06d}.tiff", load_depth_tiff))
+        mono = per_view("mono_depth_frame{:06d}.tiff", load_depth_tiff)
+        st.prior_depths = mono if mono is not None else (
+            st.depths.clone() if st.depths is not None else None)
+        st.normals = per_view("mono_normal_world_frame{:06d}.npy", np.load)
+        if st.normals is not None:
+            st.curvs = torch.stack([normal_to_curvature(n) for n in st.normals])
+        conf = per_view("confident_map_frame{:06d}.png",
+                        lambda p: load_mask_png(p).astype(np.float32))
+        if conf is not None:
+            st.confidences = conf
+        elif st.depths is not None:
+            st.confidences = torch.ones_like(st.depths)
+        mask_paths = [os.path.join(pr, f"plane_mask_frame{v:06d}.npy") for v in range(V)]
+        if all(os.path.exists(p) for p in mask_paths):
+            st.plane_masks = [np.load(p) for p in mask_paths]
+            gp = os.path.join(pr, "global_3Dplane_ID_dict.json")
+            if os.path.exists(gp):
+                with open(gp) as f:
+                    st.global_plane_dict = {int(k): [tuple(x) for x in v]
+                                            for k, v in json.load(f).items()}
+        w0 = 0.01 if self.cfg.downweight_input_view_color_loss else 1.0
+        st.color_weights = torch.cat([
+            torch.full((st.input_view_num,), w0, device=self.device),
+            torch.full((V - st.input_view_num,), 0.01, device=self.device)])
+        aj = os.path.join(pr, "anchor_view_id.json")
+        if os.path.exists(aj):
+            with open(aj) as f:
+                st.anchor_view_ids = [int(i) for i in json.load(f)]
+        if st.depths is not None:
+            self.render_chart_views_light()
+        if os.path.exists(self._ply_path()):
+            st.scene = load_gaussian_ply(self._ply_path(), device=self.device)
+        if os.path.exists(self.store.charts):
+            with np.load(self.store.charts) as data:
+                if "scale_factor" in data:
+                    st.scale_factor = float(data["scale_factor"])
+        return done
 
     # ------------------------------------------------------------------ run
     def run(self, images, cameras: Optional[Camera] = None, gt_images=None, gt_mesh=None,

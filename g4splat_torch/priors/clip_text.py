@@ -1,12 +1,13 @@
 """CLIP text tower, See3D's prompt conditioning (counterpart of
 `g4splat_tpu.priors.clip_text`).
 
-The SD-2.x OpenCLIP ViT-H text tower as SD-2.1 pipelines read it: width
-1024, the first 23 layers, 16 heads, causal attention, final LayerNorm
-(ε = 1e-5 throughout, as the JAX module sets it), exact GELU; the SD-1.x
-tower's quick-GELU and longer position tables are not ported (no caller
-uses them). In production the prompt
-is the empty string (see3d_util.py:44), whose ids are [BOS, EOS, pad, …].
+By default the SD-2.x OpenCLIP ViT-H text tower as SD-2.1 pipelines read
+it: width 1024, the first 23 layers, 16 heads, causal attention, final
+LayerNorm (ε = 1e-5 throughout, as the JAX module sets it), exact GELU.
+`act="quick_gelu"` and a `max_positions` longer than `n_ctx` give the SD-1.x
+CLIP ViT-L tower (x·σ(1.702x); the forward reads the first `n_ctx` rows of
+the position table). In production the prompt is the empty string
+(see3d_util.py:44), whose ids are [BOS, EOS, pad, …].
 Parameter names follow the JAX module's; `g4splat_torch.convert
 .flax_state_dict` carries its params across.
 """
@@ -40,9 +41,16 @@ class _CausalAttention(nn.Module):
         return self.proj(torch.einsum("bhnm,bmhd->bnhd", att, v).reshape(B, N, C))
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
 class _TextBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, act: str = "gelu"):
         super().__init__()
+        if act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = quick_gelu if act == "quick_gelu" else F.gelu
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = _CausalAttention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -51,17 +59,19 @@ class _TextBlock(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))
-        return x + self.fc2(F.gelu(self.fc1(self.norm2(x))))
+        return x + self.fc2(self.act(self.fc1(self.norm2(x))))
 
 
 class CLIPText(nn.Module):
     def __init__(self, vocab_size: int = 49408, width: int = 1024, depth: int = 23,
-                 num_heads: int = 16, n_ctx: int = 77):
+                 num_heads: int = 16, n_ctx: int = 77, max_positions: int = 0,
+                 act: str = "gelu"):
         super().__init__()
         self.n_ctx = n_ctx
         self.token_embedding = nn.Parameter(0.02 * torch.randn(vocab_size, width))
-        self.pos_embed = nn.Parameter(0.01 * torch.randn(n_ctx, width))
-        self.blocks = nn.ModuleList(_TextBlock(width, num_heads) for _ in range(depth))
+        # The checkpoint's position table (0 → n_ctx rows).
+        self.pos_embed = nn.Parameter(0.01 * torch.randn(max_positions or n_ctx, width))
+        self.blocks = nn.ModuleList(_TextBlock(width, num_heads, act) for _ in range(depth))
         self.final_ln = nn.LayerNorm(width, eps=1e-5)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

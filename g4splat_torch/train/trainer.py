@@ -311,6 +311,7 @@ class Trainer:
         self.scene = with_params(scene, self.params)
         self.optimizer = make_optimizer(cfg, self.params)
         self.dstate = DensifyState.zero(scene.capacity, device=scene.device)
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=scene.device).manual_seed(seed)
         self.scene_extent = cfg.spatial_lr_scale

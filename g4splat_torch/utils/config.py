@@ -1,6 +1,6 @@
-"""The named YAML configs under `configs/` and their overlay onto the
-stages' dataclasses (counterpart of `g4splat_tpu.utils.config.load_config`
-and `apply_overrides`).
+"""The named YAML configs under `configs/`, their overlay onto the stages'
+dataclasses, and the persisted run configuration (counterpart of
+`g4splat_tpu.utils.config`).
 
 Every file under `configs/` is a flat ``key: value`` mapping, and PyYAML is
 not a dependency of the port, so `load_config` parses that subset itself:
@@ -8,11 +8,16 @@ one ``key: value`` per line, ``#`` comments, and values that are integers,
 floats, ``true`` / ``false``, ``null`` / ``~``, plain strings (quotes
 stripped) or one-line flow lists of such scalars (``[2, 8, 16]``). A nested,
 multi-line or mapping value is refused rather than misread.
+
+`save_run_config` writes the resolved groups as `cfg_args.json` (the
+reference writes an eval()'d Namespace repr, `cfg_args`), byte for byte as
+the JAX package writes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from typing import Any, Dict
@@ -80,3 +85,18 @@ def apply_overrides(obj, overrides: Dict[str, Any], strict: bool = False):
     if strict and unknown:
         raise KeyError(f"unknown config keys: {sorted(unknown)}")
     return dataclasses.replace(obj, **{k: v for k, v in overrides.items() if k in fields})
+
+
+def save_run_config(output_dir: str, **groups):
+    """Write each group (a dataclass or a JSON-able value) under its name to
+    `output_dir/cfg_args.json`."""
+    os.makedirs(output_dir, exist_ok=True)
+    payload = {name: dataclasses.asdict(obj) if dataclasses.is_dataclass(obj) else obj
+               for name, obj in groups.items()}
+    with open(os.path.join(output_dir, "cfg_args.json"), "w") as f:
+        json.dump(payload, f, indent=2, default=str)
+
+
+def load_run_config(output_dir: str) -> Dict[str, Any]:
+    with open(os.path.join(output_dir, "cfg_args.json")) as f:
+        return json.load(f)

@@ -1,5 +1,5 @@
-"""Run G4SplatPipeline.run() from posed photos and then the command line on
-one CUDA card: chip_smoke.py's phases 17 and 18 alone.
+"""Run G4SplatPipeline.run() from posed photos, then the command line, then
+resume on one CUDA card: chip_smoke.py's phases 17, 18 and 19 alone.
 
 box_room(chip_smoke.MESH_DENSITY) photographed by B1 from
 inward_cameras(10, 512, 384), views 8 and 9 held out, a calibrated source
@@ -18,6 +18,9 @@ candidates and kept masks per view, excavate_planes with seeded disc
 logits in place of SAM's decoder, and peak device memory. Then phase 18:
 `python -m g4splat_torch.cli` (in this process) on a source directory and a
 zoo holding the same SAM as sam.npz, with its gates, output and launches.
+Then phase 19 on the CLI's artifact store: resume, a retrain under
+profiling.trace, a trainer checkpoint, the viewer, quality_run, the matches
+export that phase 17 ran through its keyed MASt3R, and the zoo writer.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -28,6 +31,7 @@ Exits non-zero if a gate fails.
 
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -53,7 +57,10 @@ def main():
     r = cs.front_end_phase()
     cs.print_front_end(r)
     print("== the command line")
-    cs.cli_phase(r.pop("sam_writer"))
+    with tempfile.TemporaryDirectory() as work:
+        _, cli = cs.cli_phase(r.pop("sam_writer"), work)
+        print("== resume and the shell")
+        cs.print_resume(cs.resume_phase(cli, r.get("matches")))
     if cs.failures:
         print(f"time_front_end: {len(cs.failures)} check(s) failed:", *cs.failures,
               sep="\n  ")

@@ -2,7 +2,8 @@
 chip_smoke.py pulls in no JAX (nor flax, optax or PyYAML, which the card's
 machine lacks) and nothing of g4splat_tpu, and no source file
 of the port, nor the timing scripts (scripts/time_*.py), imports
-either. chip_smoke.py refuses to run without a card."""
+either; `python -m g4splat_torch.zoo` runs without them. chip_smoke.py
+refuses to run without a card."""
 
 import os
 import re
@@ -50,6 +51,32 @@ def test_import_pulls_in_no_jax():
 def test_source_imports_no_jax(path):
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN), re.M)
     assert not pat.search((REPO / path).read_text()), path
+
+
+ZOO_PROBE = """
+import runpy, sys
+sys.argv = ["g4splat_torch.zoo", "--src", {src!r}, "--dst", {dst!r}]
+try:
+    runpy.run_module("g4splat_torch.zoo", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_zoo_module_runs_without_jax(tmp_path):
+    """`python -m g4splat_torch.zoo` over an empty source tree: every prior
+    skipped, no JAX (nor g4splat_tpu) loaded."""
+    src, dst = tmp_path / "src", tmp_path / "zoo"
+    src.mkdir()
+    r = subprocess.run([sys.executable, "-c", ZOO_PROBE.format(
+        src=str(src), dst=str(dst), forbidden=set(FORBIDDEN))], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout and "[skip] depth_anything_v2" in r.stdout
+    assert os.listdir(dst) == []
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
