@@ -1,5 +1,5 @@
 """Drive the g4splat_torch render, training, See3D inpainting, output,
-See3D-loop, run(), command-line and resume paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
+See3D-loop, run(), command-line, resume and multi-device paths on one NVIDIA GPU and hold their CUDA kernels (B1 forward
 rasterizer, B2 backward rasterizer, B3 attention) against the kernels'
 plain PyTorch versions.
 
@@ -76,7 +76,7 @@ Phases (any failure exits non-zero and prints no result line):
      VGG16) finite against the training images; LPIPS on the card vs on the
      CPU with the same params within LPIPS_REL; evaluate() with the last two
      views held out gives and writes the JAX package's keys (7 launches);
- 14. the mesh main path at production settings: box_room(9000 per m²),
+ 14. the mesh main path at production settings: box_room(3000 per m²),
      room_cameras(8, 512, 384), PRODUCTION_MESH_CONFIG (downsample 0.5,
      2 x 10 interpolated views: 168 cameras, 8 binary steps, texture on);
      B1 launches exactly 2 x 168 times; B1 vs its plain version on an input
@@ -95,8 +95,8 @@ Phases (any failure exits non-zero and prints no result line):
  16. one See3D loop through G4SplatPipeline (run()'s order without SfM,
      charts, mesh and eval): box_room(MESH_DENSITY) rendered by B1 from
      inward_cameras(8, 512, 384) as the inputs and the stand-in chart depths;
-     PipelineConfig() save LOOP_ITERATIONS steps per train_gaussians and
-     LOOP_SEE3D_STEPS DDIM steps; full-width See3D priors and
+     PipelineConfig() save LOOP_SELECT views selected per stage,
+     LOOP_ITERATIONS steps per train_gaussians and LOOP_SEE3D_STEPS DDIM steps; full-width See3D priors and
      DepthAnything("vitl") on seeded random weights; render_chart_views,
      excavate_planes,
      refine_plane_depths, train_gaussians, then per stage see3d_stage(k),
@@ -115,8 +115,10 @@ Phases (any failure exits non-zero and prints no result line):
  17. G4SplatPipeline.run() from 10 posed photos of box_room(MESH_DENSITY)
      (views 8 and 9 held out): MASt3R at full width (its descriptors and
      pointmaps keyed on the room's surface before the geometry stages),
-     posed SfM, charts, one See3D stage, the multires mesh, eval; SAM ViT-H
-     (SAMConfig(), seeded) proposes every excavate_planes' masks. Gates:
+     posed SfM (FRONT_SFM_ITERS steps per Adam phase), charts, one See3D
+     stage (LOOP_SELECT views), the multires mesh (FRONT_TSDF_RES³), eval;
+     SAM ViT-H (SAMConfig(), seeded) proposes every excavate_planes' masks.
+     Gates:
      (i) MASt3R card vs CPU and the matcher vs its unblocked plain version;
      (ii)-(iii) the posed cameras kept, SfM depths, the COLMAP trees;
      (iv) charts; (v) finite training, B2 and B3 launches; (vi) the mesh and
@@ -163,11 +165,31 @@ Phases (any failure exits non-zero and prints no result line):
      descriptors, and load_matches round-trips it; (viii) python -m
      g4splat_torch.zoo on an official-named seeded DepthAnythingV2 checkpoint,
      then build_priors: depth on two views bit-equal to the seeded model's.
+ 20. the multi-device paths (g4splat_torch.parallel) on a virtual mesh whose
+     entries all are this card, each against its single-device counterpart:
+     (i) view_parallel_render of phase 4's 8 cameras over 4 entries,
+     bit-equal to per-view render(), 8 B1 launches; (ii) tile_parallel_render
+     of a 1920x1088 frame of that scene in 4 strips, B1's map gate against
+     the full frame; (iii) render_gaussian_sharded of phase 5's 2.4M frame
+     in 4 depth slabs, B1's map gate on every map but the median where the
+     single render composited every splat, the median's disagreeing share
+     printed and confined to the pixels whose T = 0.5 crossing lies in a
+     slab d > 0; (iv) a slab-mode step (model 4) on phase 8's first-step
+     scene against train_step by B2's gate (depth_ratio 0; at 0.5 printed),
+     then 10 slab-mode Trainer steps, finite, 4 B1 + 4 B2 launches each;
+     (v) a data-parallel step over phase 8's 5 views (data 5) against the
+     mean of the 5 single-view gradients by B2's gate, then 3 Trainer steps,
+     5 + 5 launches each; (vi) See3D's denoise at full MVDream width, one
+     DDIM step, cond | uncond over 2 entries against the unsharded call,
+     B3 launches counted; (vii) DA2 ViT-L (4 views) and MASt3R (2 pairs)
+     over 2 entries against one batch. A virtual mesh measures correctness
+     and host cost, not scaling across cards.
 Prints a {"kernels": [...]} JSON line, the card's name and power limit as
 nvidia-smi reports them, and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -271,10 +293,13 @@ SEE3D_IMG_TOL = 2e-3
 LPIPS_REL = 1e-4
 EVAL_KEYS = ["LPIPS-uncalibrated", "test_views_num", "Average-PSNR", "Average-SSIM",
              "Average-LPIPS", "PSNR", "SSIM", "LPIPS"]
-# Phase 14: box_room's splat density (its default, 9000 per m² over 28.8 m²)
-# and room_cameras(8, 512, 384), the training resolution; the multires
-# extraction's lattice (PipelineConfig.tsdf_resolution).
+# box_room's splat density in phases 16-19 (its default, 9000 per m² over
+# 28.8 m²). Phase 14: ADAPTIVE_DENSITY per m² (a cut of scale for time: at
+# 9000 the host's Delaunay of 1,166,400 tetra points took 105-179 s of a
+# 142-303 s phase), room_cameras(8, 512, 384), the training resolution; the
+# multires extraction's lattice (PipelineConfig.tsdf_resolution).
 MESH_DENSITY = 9000
+ADAPTIVE_DENSITY = 3000
 MESH_VIEWS = (8, 512, 384)
 MULTIRES_RESOLUTION = 128
 # The first-pass TSDF from B1's maps against the plain version's: |d| <=
@@ -285,7 +310,8 @@ TSDF_TOL = 1e-3
 # completeness by evaluate_mesh's own threshold (Comp < CHAMFER_CM, recall at
 # 5 cm > RECALL_MIN %), its accuracy by Acc and Chamfer-L1 within ADAPTIVE_BAND
 # (relative) of the reading the extraction gives on this scene, ADAPTIVE_REF
-# (an H100, deterministic from run to run). Those sit above 5 cm: the
+# (an H100 at 9000 per m², deterministic from run to run; 11.66 / 6.23 on
+# the CPU at 3000 per m² and 256x192). Those sit above 5 cm: the
 # adaptive TSDF counts space no view observes as inside (-1, as the JAX
 # package and the reference do), so marching puts surfaces in mid-air where
 # observed free space meets unobserved space, and the JAX package reads the
@@ -308,9 +334,13 @@ ADAPTIVE_BAND = 0.1
 # 16-17, one DDIM step of See3D (a cut for time: with phase 19 the script
 # ran 1010-1103 s at 3 steps; phase 11 times the See3D stage at 5);
 # full-width See3D priors and DepthAnything("vitl").
+# PipelineConfig.select_inpaint_num in phases 16-18 is LOOP_SELECT (the
+# CLI docstring's example; the default 20 doubles each stage's views, and with
+# them its planes, sweeps and SAM work: a cut for time).
 LOOP_VIEWS = (8, 512, 384)
 LOOP_ITERATIONS = 35
 LOOP_SEE3D_STEPS = 1
+LOOP_SELECT = 10
 LOOP_DA2 = "vitl"
 # Gate (i): stage 1's none-visible rates from B1's sweep vs its plain version's.
 RATE_TOL = 1e-4
@@ -324,8 +354,15 @@ FRONT_VIEWS = (10, 512, 384)
 FRONT_EVAL = [8, 9]
 FRONT_DENSE = [0, 2, 4, 6]
 # Chart alignment's schedule in phase 17: "fast" (300 steps; "default" runs
-# 1000), a cut for time that phase 19 asked for.
+# 1000), a cut for time that phase 19 asked for; the posed SfM's two Adam
+# phases at FRONT_SFM_ITERS steps each (the "posed" config runs 1000 + 1000,
+# 70 s of the host's dispatch; a cut for time); run()'s multires mesh at
+# FRONT_TSDF_RES³ (PipelineConfig.tsdf_resolution 128: the host's marching
+# over the trained scene took 34-44 s per extraction, twice per run (C17);
+# phase 14 extracts at 128³).
 FRONT_CHARTS = "fast"
+FRONT_SFM_ITERS = 250
+FRONT_TSDF_RES = 64
 # Phase 19's gate (vii): the pairs of run()'s photos whose matches are
 # exported (neighbours on the inward ring, so the keyed descriptors match).
 MATCH_PAIRS = [(0, 1), (1, 2), (2, 3)]
@@ -355,7 +392,7 @@ PIXEL_SHARE = 1e-3
 CLI_VIEWS = (10, 512, 384)
 CLI_ARGS = ["--sfm_config", "posed", "--use_view_config", "--config_view_num", "8",
             "--iterations", "35", "--use_multires_tsdf", "--alignment_config", "fast",
-            "--work_size", "256"]
+            "--work_size", "256", "--select_inpaint_num", str(LOOP_SELECT)]
 RESULT_KEYS = EVAL_KEYS[:5] + ["Acc", "Comp", "Chamfer-L1", "Prec", "Recal", "F-score",
                                "Normal-Acc", "Normal-Comp", "Normal-Consistency"]
 # Phase 19: steps of each Trainer around the checkpoint (CKPT_STEPS, save,
@@ -378,6 +415,30 @@ ZOO_DA2 = "vitl"
 # bilinear depth 22, difference and truncation 7, weight and running mean 9,
 # bilinear colour 33, colour mean 18.
 TSDF_OPS_PER_POINT_VIEW = 127
+
+# Phase 20: the multi-device paths on a virtual mesh whose entries are all
+# this one card (g4splat_torch.parallel.mesh), each held to its
+# single-device counterpart on the card. Inputs: the tile-strip frame
+# (width, height) and a per-splat tile cap at which its full frame drops no
+# tile (at the default cap it drops tiles a strip keeps, ROADMAP C29);
+# slab-mode and data-parallel Trainer steps on phase 8's problem; the See3D
+# denoise at one DDIM step; the prior batches' views (DA2) and pairs
+# (MASt3R). Gates: strips and slabs by B1's map gate, the slab median apart
+# (a slab resolves the T = 0.5 crossing against its local T); slabs on every
+# pixel and on those where the single render composited every splat
+# (final_T >= EARLY_STOP_T: B1 stops a pixel at T < 1e-4, a slab on its
+# local T, so the composition adds at most T < EARLY_STOP_T more, C26);
+# gradients by B2's gate; the sharded See3D latents within SEE3D_MESH_TOL *
+# max|unsharded|; the prior batches within MESH_PRIOR_REL * max|unsharded|
+# (the split changes the GEMMs' batch, and so their tiling).
+MESH_FRAME = (1920, 1088)
+MESH_TILE_CAP = 256
+MESH_SLAB_STEPS = 10
+MESH_DP_STEPS = 3
+EARLY_STOP_T = 1e-2
+SEE3D_MESH_TOL = 1e-3
+MESH_PRIOR_REL = 1e-4
+MESH_PRIOR_VIEWS = (4, 512, 384)
 
 failures = []
 max_abs_err = 0.0
@@ -1474,10 +1535,10 @@ def mesh_phase():
     fwd = rasterize_cuda.RASTERIZE_FWD
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    scene, (gt_v, gt_f) = box_room(MESH_DENSITY, device=DEVICE)
+    scene, (gt_v, gt_f) = box_room(ADAPTIVE_DENSITY, device=DEVICE)
     cams = room_cameras(n_views, w, h, device=DEVICE)
     n_cams = n_views * (1 + cfg.interp_neighbors * cfg.interp_per_neighbor)
-    print(f"  box_room({MESH_DENSITY}): {scene.capacity} splats; {n_views} cameras at {w}x{h}, "
+    print(f"  box_room({ADAPTIVE_DENSITY}): {scene.capacity} splats; {n_views} cameras at {w}x{h}, "
           f"{n_cams} with the interpolated ones; config {cfg}")
     timings = {}
     torch.cuda.synchronize()
@@ -1685,8 +1746,8 @@ def see3d_loop_phase():
     rows = []
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            pipe = orch.G4SplatPipeline(orch.PipelineConfig(output_path=tmp),
-                                        priors, device=DEVICE)
+            pipe = orch.G4SplatPipeline(orch.PipelineConfig(
+                output_path=tmp, select_inpaint_num=LOOP_SELECT), priors, device=DEVICE)
             parts_s = {"sweeps": 0.0, "see3d": 0.0}
 
             def timed(part, fn):
@@ -2060,9 +2121,10 @@ def front_end_phase():
         rectified.append(out[1])
         return out
 
-    def sga_spy(*a, **kw):
+    def sga_spy(depths, focals, pairs, cfg, **kw):
         stats = {}
-        res = sga(*a, stats=stats, **kw)
+        cfg = dataclasses.replace(cfg, niter1=FRONT_SFM_ITERS, niter2=FRONT_SFM_ITERS)
+        res = sga(depths, focals, pairs, cfg, stats=stats, **kw)
         sfm_runs.append((res, stats))
         return res
 
@@ -2108,10 +2170,10 @@ def front_end_phase():
             call["nms_equal"].append(nms_loop(masks.cpu().numpy(), thr) == kept)
         return kept
 
-    def batch_spy(images):
+    def batch_spy(images, **kw):
         call = {"views": len(images), "cands": [], "nms_equal": []}
         sam_log["calls"].append(call)
-        out = batch_fn(images)
+        out = batch_fn(images, **kw)
         H, W = images.shape[1:3]
         call["kept"] = [len(v) for v in out]
         call["masks_ok"] = len(out) == len(images) and all(
@@ -2137,10 +2199,12 @@ def front_end_phase():
                 source_path=src, output_path=out, sfm_config="posed",
                 alignment_config=FRONT_CHARTS,
                 use_multires_tsdf=True, n_see3d_stages=1, train_iterations=LOOP_ITERATIONS,
+                select_inpaint_num=LOOP_SELECT, tsdf_resolution=FRONT_TSDF_RES,
                 eval_split=FRONT_EVAL), priors, device=DEVICE)
             cfg = pipe.cfg
             print(f"  PipelineConfig: sfm {cfg.sfm_config!r}, alignment "
-                  f"{cfg.alignment_config!r}, {cfg.n_see3d_stages} See3D stage, multires mesh "
+                  f"{cfg.alignment_config!r} (SfM {FRONT_SFM_ITERS} + {FRONT_SFM_ITERS} steps), "
+                  f"{cfg.n_see3d_stages} See3D stage of {cfg.select_inpaint_num} views, multires mesh "
                   f"at {cfg.tsdf_resolution}^3, {cfg.train_iterations} iterations per "
                   f"train_gaussians, capacity {cfg.gaussian_capacity}, render_backend "
                   f"{cfg.render_backend!r}; the rest PipelineConfig's defaults")
@@ -2459,10 +2523,10 @@ def sam_disc_run(pipe, pred, room_normals):
     capture, cands, out = [], [], {}
     decode, batch, nms = pred._decode, gen.batch, SAM_.nms_masks
 
-    def batch_spy(images):
+    def batch_spy(images, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out["masks"] = batch(images)
+        out["masks"] = batch(images, **kw)
         torch.cuda.synchronize()
         out["sam_s"] = time.perf_counter() - t0
         return out["masks"]
@@ -3242,6 +3306,375 @@ def print_mesh_timings(r):
           + f"; wall {r['mr_wall']:.3f}")
 
 
+def mesh_map_gate(tag, got, ref, keys, where=None):
+    """B1's map gate on render() outputs: a pixel of map k agrees when
+    |got - ref| <= MAP_TOL * max|ref| (at least ABS_FLOOR); under FLIP_FRAC
+    of the pixels (of `where`, when given) may disagree."""
+    import torch
+
+    if where is not None and not bool(where.any()):
+        print(f"  {tag}: no pixel to grade")
+        return
+    for k in keys:
+        d = (got[k] - ref[k]).abs()
+        d = d.amax(-1) if d.ndim == 3 else d
+        tol = max(MAP_TOL * float(ref[k].abs().max()), ABS_FLOOR)
+        over = d > tol
+        if where is not None:
+            over, d = over[where], d[where]
+        share = float(over.to(torch.float32).mean())
+        check(share < FLIP_FRAC, f"{tag} {k}: max|d| {float(d.max()):.2e} (tol {tol:.1e}), "
+              f"disagreeing {share:.1e} of pixels (< {FLIP_FRAC})")
+
+
+def grad_groups(params):
+    return {k: params[k].grad.detach().clone() for k in PARAMS}
+
+
+def grad_gate(tag, got, ref, gate=True):
+    """B2's gate per parameter group: ||got - ref|| / ||ref|| <= GRAD_TOL,
+    ||ref|| > 0. Printed only, with gate=False."""
+    rels = {}
+    for k in PARAMS:
+        norm = float(ref[k].norm())
+        rels[k] = float((got[k] - ref[k]).norm()) / max(norm, 1e-30)
+        if gate:
+            check(norm > 0 and rels[k] <= GRAD_TOL,
+                  f"{tag} {k}: ||d|| / ||single|| {rels[k]:.2e} (<= {GRAD_TOL}), "
+                  f"||single|| {norm:.3e}")
+    if not gate:
+        print(f"  {tag} (printed, not gated): ||d|| / ||single|| " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rels.items()))
+    return rels
+
+
+def multi_device_phase(scene4, cams4):
+    """Phase 20: every multi-device path on a virtual mesh of this card
+    (entries repeating cuda:0), through the kernels, against its
+    single-device counterpart. Returns launch counts and timings."""
+    import torch
+
+    from g4splat_torch.core.cameras import camera_at, lookat_camera, stack_cameras
+    from g4splat_torch.core.geometry import depth_to_normal
+    from g4splat_torch.device import fp32_math
+    from g4splat_torch.ops import attention_cuda, rasterize_cuda, rasterize_cuda_bwd
+    from g4splat_torch.ops.rasterize import render
+    from g4splat_torch.ops.rasterize_common import RenderConfig
+    from g4splat_torch.parallel import gaussian_shard as G
+    from g4splat_torch.parallel import mesh as M
+    from g4splat_torch.priors.depth_anything import DepthAnything
+    from g4splat_torch.priors.mast3r import MASt3RConfig, MASt3RModel
+    from g4splat_torch.priors.see3d import (DDIMConfig, MultiViewUNet, See3DPipeline,
+                                            UNetConfig)
+    from g4splat_torch.train import losses as L
+    from g4splat_torch.train import trainer as T
+    from g4splat_torch.train.densify import DensifyState
+
+    kernels = (rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD,
+               attention_cuda.ATTENTION_FWD)
+    total = [0, 0, 0]
+    r = {"ms": {}}
+
+    def mesh_of(n_data, n_model=1):
+        return M.make_mesh(n_data, n_model, devices=[DEVICE] * (n_data * n_model))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(fn):
+        """fn() with every count set to 0 just before and read just after;
+        the counts join the phase's launches. Returns (result, counts)."""
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = tuple(k.launches for k in kernels)
+        for i, n in enumerate(got):
+            total[i] += n
+        return out, got
+
+    def pair_ms(tag, mesh_fn, single_fn):
+        """Host ms of a second (warm) call of the mesh path and of its
+        single-device counterpart."""
+        r["ms"][tag] = (timed(mesh_fn)[1], timed(single_fn)[1])
+
+    # (i) view fan-out: the 8 orbit cameras of phase 4 over 4 entries.
+    keys = ("render", "rend_alpha", "rend_normal", "surf_depth")
+    cams8 = stack_cameras(cams4)
+    cfg = RenderConfig(depth_ratio=0.0, compute_distortion=False)
+    with torch.no_grad():
+        def fan():
+            return M.view_parallel_render(mesh_of(4), scene4, cams8, backend="cuda", keys=keys)
+
+        def per_view():
+            return [render(c, scene4, cfg, backend="cuda") for c in cams4]
+
+        out, got = counted(fan)
+        refs = per_view()
+        pair_ms("(i) 8 views over 4 entries | per view", fan, per_view)
+    check(got == (8, 0, 0), f"(i) view_parallel_render over 4 entries launched (B1, B2, B3) "
+          f"{got} ((8, 0, 0) expected)")
+    check(all(torch.equal(out[k][i], refs[i][k]) for k in keys for i in range(8)),
+          f"(i) the 8 views over 4 entries bit-equal to per-view render(): {', '.join(keys)}")
+    del out, refs
+
+    # (ii) tile strips: one MESH_FRAME frame of the bench scene over 4 entries,
+    # with a per-splat tile cap at which the full frame drops no tile (at the
+    # default cap it drops tiles a strip keeps: C29).
+    Wf, Hf = MESH_FRAME
+    camf = lookat_camera([0, -0.8, -6.5], [0, 0, 0], [0, -1, 0], fx=600.0 * Wf / 768,
+                         fy=600.0 * Wf / 768, width=Wf, height=Hf, device=DEVICE)
+    keys = ("render", "rend_alpha", "surf_depth", "surf_normal")
+    cfg = RenderConfig(max_tiles_per_splat=MESH_TILE_CAP)
+    with torch.no_grad():
+        def strips():
+            return M.tile_parallel_render(mesh_of(4), scene4, camf, backend="cuda", keys=keys,
+                                          config=cfg)
+
+        def frame():
+            return render(camf, scene4, cfg, backend="cuda", need_aux=False)
+
+        out, got = counted(strips)
+        ref = frame()
+        pair_ms("(ii) 4 strips | the full frame", strips, frame)
+        capped = int(render(camf, scene4, backend="cuda", need_aux=False)["n_dropped"])
+    print(f"  (ii) the full frame drops {capped} tiles of splats at the default cap "
+          f"({RenderConfig().max_tiles_per_splat} per splat), {int(ref['n_dropped'])} at "
+          f"{MESH_TILE_CAP}")
+    check(got == (4, 0, 0), f"(ii) 4 strips of {Wf}x{Hf} launched {got} ((4, 0, 0) expected)")
+    check(int(ref["n_dropped"]) == 0, f"(ii) the full frame drops no tile at a cap of "
+          f"{MESH_TILE_CAP} per splat")
+    mesh_map_gate("(ii) strips vs the full frame", out, ref, keys[:3])
+    # Normals from depth amplify a depth pixel's rounding into its
+    # neighbours' normals; the strips' normals are the full frame's function
+    # of the assembled depth, computed once across the seams.
+    again = depth_to_normal(camf, out["surf_depth"]) * out["rend_alpha"][..., None]
+    sn = (out["surf_normal"] - ref["surf_normal"]).abs().amax(-1) > MAP_TOL
+    print(f"  (ii) surf_normal off the full frame's by > {MAP_TOL} at "
+          f"{float(sn.float().mean()):.1e} of pixels (printed, not gated)")
+    check(torch.equal(out["surf_normal"], again), "(ii) surf_normal is normals-from-depth of "
+          "the assembled surf_depth, bit for bit (no seam)")
+    del out, ref, again
+
+    # (iii) depth slabs of phase 5's 2.4M frame over 4 entries.
+    n5, w5, h5 = BIG_SHAPE
+    big = build_scene(n5, 0, sh_degree=3)
+    cam5 = lookat_camera([0, -0.8, -6.5], [0, 0, 0], [0, -1, 0], fx=600.0 * w5 / 768,
+                         fy=600.0 * w5 / 768, width=w5, height=h5, device=DEVICE)
+    slabs = G.partition_by_view_depth(big, cam5, 4)
+    with torch.no_grad():
+        def sharded():
+            return G.render_gaussian_sharded(mesh_of(1, 4), slabs, cam5, backend="cuda")
+
+        def single():
+            return render(cam5, big, RenderConfig(), backend="cuda")
+
+        out, got = counted(sharded)
+        ref = single()
+        pair_ms("(iii) 4 slabs of 2.4M | one render", sharded, single)
+        maps, _ = G.render_slabs(mesh_of(1, 4), lambda d: slabs[d], cam5,
+                                 RenderConfig(bg=(0.0, 0.0, 0.0)), "cuda")
+    check(got == (4, 0, 0), f"(iii) 4 slabs of {n5} splats launched {got} ((4, 0, 0) "
+          f"expected)")
+    full = ref["final_T"] >= EARLY_STOP_T
+    print(f"  (iii) slab capacity {slabs[0].capacity}; pixels where the single render "
+          f"may have stopped early (final_T < {EARLY_STOP_T}): "
+          f"{1 - float(full.float().mean()):.4f}")
+    maps13 = ("render", "rend_alpha", "rend_normal", "rend_depth", "rend_dist", "final_T")
+    mesh_map_gate("(iii) slabs vs the single render, every pixel", out, ref, maps13[:-1])
+    mesh_map_gate("(iii) slabs vs the single render, no early stop", out, ref, maps13,
+                  where=full)
+    # Where the single render stopped, the slabs composited what lay behind
+    # the stop: their T is lower, by at most the single render's final T.
+    dT = ref["final_T"] - out["final_T"]
+    check(float(dT.min()) >= -ABS_FLOOR and bool((dT <= ref["final_T"] + ABS_FLOOR).all()),
+          f"(iii) final_T: 0 <= single - slabs <= single at every pixel (max "
+          f"{float(dT.max()):.2e}, single's max {float(ref['final_T'].max()):.2e})")
+    T_d = maps[..., 10]
+    P_d = torch.cat([torch.ones_like(T_d[:1]), torch.cumprod(T_d, 0)[:-1]])
+    deep = ((P_d > 0.5) & (torch.cumprod(T_d, 0) <= 0.5))[1:].any(0)
+    off = (out["depth_median"] - ref["depth_median"]).abs() > MAP_TOL * float(
+        ref["depth_median"].abs().max())
+    r["median_off"] = float(off.float().mean())
+    r["median_deep"] = float(deep.float().mean())
+    outside = float((off & ~deep).float().mean())
+    print(f"  (iii) median: disagreeing {r['median_off']:.4f} of pixels; T crosses 0.5 inside "
+          f"a slab d > 0 at {r['median_deep']:.4f}; disagreeing elsewhere {outside:.1e}")
+    check(outside < FLIP_FRAC, f"(iii) the median disagrees outside the deeper-slab "
+          f"crossings at {outside:.1e} of pixels (< {FLIP_FRAC})")
+    del big, slabs, out, ref, maps
+    torch.cuda.empty_cache()
+
+    # (iv) slab-mode training on phase 8's problem, model = 4.
+    n_live, cap, w8, h8, n_views, _, _ = TRAIN_SHAPE
+    init, cams_t, views_t = training_data(n_live, cap, w8, h8, n_views)
+    cfg8 = T.TrainConfig(densify_from_iter=5, densification_interval=10,
+                         densify_until_iter=MESH_SLAB_STEPS + 1, normal_consistency_from=0,
+                         densify_grad_threshold=2e-7, max_capacity=cap)
+    first = T.Trainer(init, cams_t, views_t, cfg8, seed=0).scene   # the first step's scene
+    it, v = 6, 0
+    view = {k: getattr(views_t, k)[v] for k in ("image", "prior_depth", "prior_normal",
+                                                 "prior_curv", "confidence", "color_weight")}
+    view["scale_factor"] = views_t.scale_factor
+    shifts = L.draw_depth_order_shifts((h8, w8), torch.Generator(device=DEVICE).manual_seed(4),
+                                       device=DEVICE)
+
+    def leaves(cfg):
+        params = {k: getattr(first, k).detach().clone().requires_grad_(True)
+                  for k in T.PARAM_FIELDS}
+        return first.replace(**params), T.make_optimizer(cfg, params), params
+
+    slab_step = G.make_slab_sharded_train_step(mesh_of(1, 4))
+    for ratio in (0.0, cfg8.depth_ratio):
+        cfg = cfg8.replace(depth_ratio=ratio)
+        s1, o1, p1 = leaves(cfg)
+        T.train_step(s1, o1, DensifyState.zero(cap, device=DEVICE), camera_at(cams_t, v),
+                     view, it, cfg, shifts=shifts)
+        s2, o2, p2 = leaves(cfg)
+        perm = G.view_depth_permutations(s2, cams_t)[v]
+        slab_step(s2, o2, DensifyState.zero(cap, device=DEVICE), camera_at(cams_t, v), view,
+                  it, cfg, perm, torch.argsort(perm), shifts=shifts)
+        grad_gate(f"(iv) slab step vs train_step, depth_ratio {ratio}", grad_groups(p2),
+                  grad_groups(p1), gate=ratio == 0.0)
+        del s1, o1, p1, s2, o2, p2
+    tr = T.Trainer(init, cams_t, views_t, cfg8, seed=0, mesh=mesh_of(1, 4))
+    per_step, hist, ms = set(), [], []
+    for _ in range(MESH_SLAB_STEPS):
+        t0 = time.perf_counter()
+        m, got = counted(tr.step)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.add(got)
+        hist.append(m)
+    check(per_step == {(4, 4, 0)}, f"(iv) slab-mode steps launched (B1, B2, B3) "
+          f"{sorted(per_step)} per step ((4, 4, 0) expected)")
+    check(all(np.isfinite(m["loss"]) for m in hist) and bool(torch.isfinite(tr.scene.xyz).all()),
+          f"(iv) {MESH_SLAB_STEPS} slab-mode steps finite (densify at 10: n_alive "
+          f"{int(hist[0]['n_alive'])} -> {int(tr.scene.num_alive)}), losses "
+          + " ".join(f"{m['loss']:.4f}" for m in hist))
+    one = T.Trainer(init, cams_t, views_t, cfg8, seed=0)
+    single = [timed(one.step)[1] for _ in range(4)][1:]
+    r["ms"]["(iv) slab step | single step (medians)"] = (float(np.median(ms[1:9])),
+                                                          float(np.median(single)))
+    del tr, one
+
+    # (v) data-parallel training over phase 8's 5 views, data = 5.
+    cfg = cfg8
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    singles = []
+    for u in range(n_views):
+        s1, o1, p1 = leaves(cfg)
+        sh = L.draw_depth_order_shifts((h8, w8), gen, device=DEVICE)
+        view_u = {k: getattr(views_t, k)[u] for k in view if k != "scale_factor"}
+        view_u["scale_factor"] = views_t.scale_factor
+        T.train_step(s1, o1, DensifyState.zero(cap, device=DEVICE), camera_at(cams_t, u),
+                     view_u, it, cfg, shifts=sh)
+        singles.append(grad_groups(p1))
+        del s1, o1, p1
+    mean = {k: sum(g[k] for g in singles) / n_views for k in PARAMS}
+    s2, o2, p2 = leaves(cfg)
+    T.make_dp_train_step(mesh_of(n_views))(
+        s2, o2, DensifyState.zero(cap, device=DEVICE), cams_t, views_t, list(range(n_views)),
+        it, cfg, generator=torch.Generator(device=DEVICE).manual_seed(5))
+    grad_gate("(v) data-parallel step vs the mean of single-view gradients", grad_groups(p2),
+              mean)
+    del s2, o2, p2, singles, mean
+    tr = T.Trainer(init, cams_t, views_t, cfg8, seed=0, mesh=mesh_of(n_views))
+    per_step, hist, ms = set(), [], []
+    for _ in range(MESH_DP_STEPS):
+        t0 = time.perf_counter()
+        m, got = counted(tr.step)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.add(got)
+        hist.append(m)
+    check(per_step == {(n_views, n_views, 0)}, f"(v) data-parallel steps launched "
+          f"{sorted(per_step)} per step (({n_views}, {n_views}, 0) expected)")
+    check(all(np.isfinite(m["loss"]) for m in hist), f"(v) {MESH_DP_STEPS} data-parallel "
+          f"steps finite: losses " + " ".join(f"{m['loss']:.4f}" for m in hist))
+    r["ms"]["(v) data-parallel step of 5 views (median)"] = (float(np.median(ms[1:] or ms)),)
+    del tr, init, first, views_t
+    torch.cuda.empty_cache()
+
+    # (vi) the See3D denoise at full MVDream width, data = 2 (cond | uncond).
+    n_ref, n_warp, res, _ = SEE3D_SHAPE
+    F = n_ref + n_warp
+    torch.manual_seed(3)
+    with torch.device(DEVICE):
+        unet = MultiViewUNet(UNetConfig(**SEE3D_MODELS["unet"])).eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith(("proj_out.weight", "out_layers.3.weight", "out.2.weight")):
+                p.normal_(0.0, 0.5 / p[0].numel() ** 0.5, generator=gen)
+        lat_res = res // 8
+        lat = torch.randn((F, 4, lat_res, lat_res), generator=gen, device=DEVICE)
+        masks = (torch.rand((F, 1, lat_res, lat_res), generator=gen, device=DEVICE) > 0.5
+                 ).to(torch.float32)
+        ctx = torch.randn((F, 77, unet.cfg.context_dim), generator=gen, device=DEVICE)
+    one = See3DPipeline(unet, DDIMConfig(num_steps=1))
+    sharded = See3DPipeline(unet, DDIMConfig(num_steps=1), mesh=mesh_of(2))
+    noise = one.draw_noise(lat.shape, DEVICE, gen)
+    n_calls = len(one.sampler.timesteps)
+    with fp32_math():
+        ref = one.inpaint_latents(lat, masks, ctx, gt_num=n_ref, noise=noise)
+        def go(pipe):
+            return lambda: pipe.inpaint_latents(lat, masks, ctx, gt_num=n_ref, noise=noise)
+
+        got_lat, got = counted(go(sharded))
+        pair_ms("(vi) See3D denoise, 2 entries | unsharded", go(sharded), go(one))
+    expect = 2 * 2 * unet.cfg.n_transformer_blocks() * n_calls
+    check(got == (0, 0, expect), f"(vi) the sharded denoise ({n_calls} UNet calls of {2 * F} "
+          f"frames over 2 entries) launched {got} ((0, 0, {expect}) expected)")
+    err = float((got_lat - ref).abs().max()) / float(ref.abs().max())
+    r["see3d_err"] = err
+    check(bool(torch.isfinite(got_lat).all()) and err <= SEE3D_MESH_TOL,
+          f"(vi) sharded vs unsharded latents: max|d| / max|unsharded| {err:.2e} "
+          f"(<= {SEE3D_MESH_TOL})")
+    del unet, one, sharded, ref, got_lat, lat, masks, ctx, noise
+    torch.cuda.empty_cache()
+
+    # (vii) the prior batches: DA2 ViT-L over 4 views, MASt3R over 2 pairs.
+    nv, wv, hv = MESH_PRIOR_VIEWS
+    imgs = torch.rand((nv, hv, wv, 3), generator=gen, device=DEVICE)
+    da2 = DepthAnything("vitl", seed=14, device=DEVICE)
+    a = da2.infer_images(imgs)
+    b, got = counted(lambda: da2.infer_images(imgs, mesh=mesh_of(2)))
+    pair_ms("(vii) DA2, 2 entries | one batch", lambda: da2.infer_images(imgs, mesh=mesh_of(2)),
+            lambda: da2.infer_images(imgs))
+    err = float((a - b).abs().max()) / float(a.abs().max())
+    check(err <= MESH_PRIOR_REL, f"(vii) DA2 vitl, {nv} views over 2 entries vs one batch: "
+          f"max|d| / max|one| {err:.2e} (<= {MESH_PRIOR_REL})")
+    del da2, a, b
+    model = MASt3RModel(MASt3RConfig(), seed=15, device=DEVICE)
+    one = model.symmetric_inference_batch(imgs[:2], imgs[2:4])
+    two, got = counted(lambda: model.symmetric_inference_batch(imgs[:2], imgs[2:4],
+                                                               mesh=mesh_of(2)))
+    pair_ms("(vii) MASt3R, 2 entries | one batch", lambda: model.symmetric_inference_batch(
+        imgs[:2], imgs[2:4], mesh=mesh_of(2)), lambda: model.symmetric_inference_batch(
+        imgs[:2], imgs[2:4]))
+    worst = max(float((db[k] - da[k]).abs().max()) / max(float(da[k].abs().max()), 1e-30)
+                for pa, pb in zip(one, two) for da, db in zip(pa, pb) for k in da)
+    check(len(two) == 2 and worst <= MESH_PRIOR_REL,
+          f"(vii) MASt3R, 2 pairs over 2 entries vs one batch: worst map max|d| / max|one| "
+          f"{worst:.2e} (<= {MESH_PRIOR_REL})")
+    del model, one, two
+    torch.cuda.empty_cache()
+    r["launches"] = tuple(total)
+    return r
+
+
+def print_multi_device(r):
+    print("  phase 20 ms (host clock, synchronized; a second call, or the steps' median; "
+          "mesh path | its single-device counterpart):")
+    for k, v in r["ms"].items():
+        print(f"    {k}: " + " | ".join(f"{x:.1f}" for x in v))
+    print(f"  phase 20 launches (B1, B2, B3): {r['launches']}")
+
+
 def main():
     import tempfile
 
@@ -3647,7 +4080,7 @@ def main():
     torch.cuda.empty_cache()
 
     print(f"== phase 14: mesh main path at production settings (box room, "
-          f"{MESH_DENSITY} splats per m²)")
+          f"{ADAPTIVE_DENSITY} splats per m²)")
     t0 = time.perf_counter()
     mesh14 = mesh_phase()
     print(f"  phase 14 {time.perf_counter() - t0:.1f} s")
@@ -3658,6 +4091,7 @@ def main():
 
     print(f"== phase 16: one See3D loop through G4SplatPipeline, full width ({LOOP_DA2} "
           f"DepthAnything V2, MVDream See3D), production PipelineConfig save "
+          f"select_inpaint_num {LOOP_SELECT}, "
           f"{LOOP_ITERATIONS} steps per train_gaussians and {LOOP_SEE3D_STEPS} DDIM step(s)")
     loop16 = see3d_loop_phase()
     print_see3d_loop(loop16)
@@ -3684,6 +4118,15 @@ def main():
         print_resume(resume19)
         del cli18
     torch.cuda.empty_cache()
+
+    print(f"== phase 20: the multi-device paths on a virtual mesh of this card (every entry "
+          f"cuda:0): view fan-out, tile strips, depth slabs, slab-mode and data-parallel "
+          f"training, the sharded See3D denoise, the prior batches; {smi}")
+    t0 = time.perf_counter()
+    mesh20 = multi_device_phase(scene, cams)
+    print_multi_device(mesh20)
+    print(f"  phase 20 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -3707,18 +4150,18 @@ def main():
         {"name": fwd.name, "route": "cuda", "source": fwd.source, "replaces": fwd.replaces,
          "launches": launches + launches8[0] + launches13 + mesh14["launches"]
                      + loop16["launches"][0] + front17["launches"][0] + launches18[0]
-                     + resume19["launches"][0],
+                     + resume19["launches"][0] + mesh20["launches"][0],
          "max_abs_err": max_abs_err, "ms": main_ms,
          "plain_ms": main_plain, "bound_ms": bound4, "bound_by": by4, "library_ms": None},
         {"name": bwd.name, "route": "cuda", "source": bwd.source, "replaces": bwd.replaces,
          "launches": launches8[1] + loop16["launches"][1] + front17["launches"][1]
-                     + launches18[1] + resume19["launches"][1],
+                     + launches18[1] + resume19["launches"][1] + mesh20["launches"][1],
          "max_abs_err": max_abs_err_bwd,
          "ms": k_ms,
          "plain_ms": p_ms, "bound_ms": bound8, "bound_by": by8, "library_ms": None},
         {"name": att.name, "route": "cuda", "source": att.source, "replaces": att.replaces,
          "launches": launches11 + loop16["launches"][2] + front17["launches"][2]
-                     + launches18[2],
+                     + launches18[2] + mesh20["launches"][2],
          "max_abs_err": err10, "ms": a_ms,
          "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib}]}))

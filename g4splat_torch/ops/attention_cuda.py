@@ -103,5 +103,5 @@ def _attention_fwd_cuda(q, k, v):
                  ctypes.addressof(strides), stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed: CUDA error {err}")
-    ATTENTION_FWD.launches += 1
+    ATTENTION_FWD.count_launch()
     return out

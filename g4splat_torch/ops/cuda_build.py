@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable
@@ -32,14 +33,23 @@ SOURCES = ("rasterize_fwd", "rasterize_bwd", "attention_fwd")
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
+
+
 @dataclass
 class KernelInfo:
     """A hand-written kernel and the count of its launches (incremented by
-    its wrapper at each launch, and nowhere else)."""
+    its wrapper at each launch, and nowhere else; under a lock, since the
+    mesh paths launch from several host threads)."""
     name: str
     source: str     # path in the repository
     replaces: str   # file:line of the TPU kernel it replaces
     launches: int = 0
+
+    def count_launch(self):
+        with _count_lock:
+            self.launches += 1
 
 
 def _nvcc() -> str:
@@ -116,8 +126,10 @@ def sass_mma_counts(name: str) -> Dict[str, Dict[str, int]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
-    if name not in _loaded:
-        build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(_target(name)))
-    return _loaded[name]
+    """The loaded library of `csrc/<name>.cu`, built on first use (once,
+    whichever host thread asks first)."""
+    with _load_lock:
+        if name not in _loaded:
+            build_all((name,))
+            _loaded[name] = ctypes.CDLL(str(_target(name)))
+        return _loaded[name]

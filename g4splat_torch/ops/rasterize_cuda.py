@@ -182,7 +182,7 @@ def _rasterize_entries_cuda(table, gauss_id, tile_start, tile_count, bg, width, 
             out.data_ptr(), n_contrib.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd launch failed: CUDA error {err}")
-    RASTERIZE_FWD.launches += 1
+    RASTERIZE_FWD.count_launch()
     return _maps(out, n_contrib)
 
 

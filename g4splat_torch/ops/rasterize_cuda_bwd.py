@@ -160,7 +160,7 @@ def launch_backward(args, grad: torch.Tensor, near: float = NEAR_N, far: float =
             int(bool(want_dist)), work.data_ptr(), grad.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rasterize_bwd launch failed: CUDA error {err}")
-    RASTERIZE_BWD.launches += 1
+    RASTERIZE_BWD.count_launch()
     return work
 
 

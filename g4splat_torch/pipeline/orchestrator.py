@@ -20,8 +20,14 @@ point_cloud/iteration_N/point_cloud.ply, renders, the mesh, result_iter_N).
 Maps stay on the device until they are written; PNG, TIFF and NPY writes
 are encoded on the I/O thread pool. `stage_done` reads which stages an
 earlier run finished from those files, and `resume_from_artifacts` rebuilds
-the state from them, so that a stage can run again on a fresh pipeline. The
-view fan-out over several devices and the CLI are not part of this module.
+the state from them, so that a stage can run again on a fresh pipeline.
+
+On several devices (`parallel.mesh.available_devices`: the visible cards,
+or the CPU alone) the view sweeps fan out over them, the DA2 and SAM view
+batches and the MASt3R pair batch split over them, and `train_gaussians`
+trains data-parallel when `data_parallel_training` asks for it; on one
+device every branch is the single-device one. The CLI is not part of this
+module.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from g4splat_torch.io.ply import save_gaussian_ply, save_mesh_ply, save_point_cl
 from g4splat_torch.ops.depth_align import depth_linear_align
 from g4splat_torch.ops.rasterize import render
 from g4splat_torch.ops.rasterize_common import RenderConfig
+from g4splat_torch.parallel import mesh as pmesh
 from g4splat_torch.pipeline import sfm as S
 from g4splat_torch.pipeline.chart_alignment import (
     ChartAlignConfig,
@@ -262,9 +269,16 @@ class G4SplatPipeline:
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(dtype)
 
+    def _prior_mesh(self, n_items: int) -> Optional[pmesh.DeviceMesh]:
+        """The data mesh the per-view prior batches (DA2, SAM) shard their
+        view axis over; None on one device."""
+        return pmesh.fan_mesh(self.device, n_items)
+
     def _mono_disparity(self, images: torch.Tensor) -> torch.Tensor:
-        """DA2 disparity for a same-size view stack, in slabs on its device."""
-        return self.priors.depth_model.infer_images(images)
+        """DA2 disparity for a same-size view stack, in slabs, the view axis
+        split over the device mesh when there is one."""
+        return self.priors.depth_model.infer_images(
+            images, mesh=self._prior_mesh(len(images)))
 
     def _normals_curvs(self, cameras: Camera, depths: torch.Tensor):
         normals = torch.stack([depth_to_normal(camera_at(cameras, v), depths[v])
@@ -320,8 +334,13 @@ class G4SplatPipeline:
             else:
                 pair_ids = S.build_pairs_exhaustive(V)
             if hasattr(model, "symmetric_inference_batch"):
+                # The pair axis splits over the cards when there are several;
+                # the CPU keeps one batch, as the JAX package does.
+                mesh = (pmesh.fan_mesh(self.device, 2 * len(pair_ids))
+                        if self.device.type != "cpu" and len(pair_ids) > 1 else None)
                 outs = model.symmetric_inference_batch(st.images[[i for i, _ in pair_ids]],
-                                                       st.images[[j for _, j in pair_ids]])
+                                                       st.images[[j for _, j in pair_ids]],
+                                                       mesh=mesh)
             else:
                 outs = [model.symmetric_inference(st.images[i:i + 1], st.images[j:j + 1])
                         for i, j in pair_ids]
@@ -554,7 +573,10 @@ class G4SplatPipeline:
             exc = PlaneExcavator(PlaneExcavatorConfig(),
                                  mask_generator=self.priors.sam_generator)
             gen = self.priors.sam_generator
-            pre = gen.batch(st.images) if gen is not None and hasattr(gen, "batch") else None
+            # One encoder pass over the view stack (split over the device
+            # mesh when there is one); prompting and NMS per view.
+            pre = (gen.batch(st.images, mesh=self._prior_mesh(len(st.images)))
+                   if gen is not None and hasattr(gen, "batch") else None)
             st.plane_masks = []
             for v in range(len(st.images)):
                 out = exc(st.images[v], st.normals[v],
@@ -660,7 +682,19 @@ class G4SplatPipeline:
                              prior_curv=st.curvs, confidence=st.confidences,
                              color_weight=st.color_weights,
                              scale_factor=torch.tensor(10.0, device=self.device))
-            trainer = Trainer(scene, st.cameras, views, tcfg)
+            # Data-parallel training only on request: the JAX package's A/B
+            # (equal view visits, same schedule) put 8-way DP 11 dB below
+            # single-device training. It takes the largest divisor of V no
+            # larger than the device count.
+            mesh = None
+            devs = pmesh.available_devices(self.device)
+            V = len(st.images)
+            if cfg.data_parallel_training and len(devs) > 1:
+                n_data = max((d for d in range(2, min(len(devs), V) + 1) if V % d == 0),
+                             default=0)
+                if n_data >= 2:
+                    mesh = pmesh.make_mesh(n_data=n_data, devices=devs[:n_data])
+            trainer = Trainer(scene, st.cameras, views, tcfg, mesh=mesh)
             trainer.train(iters)
             st.scene = trainer.scene
             save_gaussian_ply(os.path.join(self.store.point_cloud_dir(iters),
@@ -889,7 +923,15 @@ class G4SplatPipeline:
                            depth_ratio: float = 0.5) -> Dict[str, torch.Tensor]:
         """{key: (n_views, H, W[, C])} maps of the first n_views cameras, one
         render (one B1 launch on the cuda backend) per view, on the scene's
-        device. The distortion channel is computed only when asked for."""
+        device, the views fanned out over the device mesh when there is one
+        (padded by repeating the last camera, the tail dropped). The
+        distortion channel is computed only when asked for."""
+        mesh = pmesh.fan_mesh(self.state.scene.device, n_views)
+        if mesh is not None:
+            with torch.no_grad():
+                return pmesh.render_views(mesh, self.state.scene, cameras, n_views,
+                                          backend=self.cfg.render_backend, keys=tuple(keys),
+                                          depth_ratio=depth_ratio)
         cfg = RenderConfig(depth_ratio=depth_ratio, compute_distortion=bool(
             {"rend_dist", "dist_m1", "dist_m2"} & set(keys)))
         maps = {k: [] for k in keys}
@@ -935,9 +977,11 @@ class G4SplatPipeline:
 
     def _render_camera_batch(self, cameras: Camera, n_views: int, out_dir: str) -> torch.Tensor:
         """The first n_views cameras' renders, written to out_dir/{v:05d}.png
-        (one B1 launch per view on the cuda backend)."""
+        (one B1 launch per view on the cuda backend), fanned out over the
+        device mesh when there is one."""
         return render_camera_batch(self.state.scene, cameras, out_dir, self.cfg.render_backend,
-                                   n_views=n_views)
+                                   n_views=n_views,
+                                   mesh=pmesh.fan_mesh(self.state.scene.device, n_views))
 
     def render_all(self, iteration: Optional[int] = None, include_test: bool = True):
         """Render the train views, and the held-out test views when a split

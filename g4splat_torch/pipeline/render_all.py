@@ -6,8 +6,9 @@ Plain functions over (scene, cameras); `G4SplatPipeline.render_all` calls
 them over the pipeline's state and artifact store. Each view is one `render` call with the default
 background and no distortion (one B1 launch on the cuda backend); with
 `out_dir` the renders are written as `{v:05d}.png`, encoded on the I/O
-thread pool while the next view renders. The fan-out over several devices
-is not ported.
+thread pool while the next view renders. With a `parallel.mesh.DeviceMesh`
+of several `data` entries the views fan out over it
+(`parallel.mesh.render_views`).
 """
 
 from __future__ import annotations
@@ -22,25 +23,30 @@ from g4splat_torch.io.images import flush_io, save_image_async
 from g4splat_torch.models.gaussians import GaussianScene
 from g4splat_torch.ops.rasterize import render
 from g4splat_torch.ops.rasterize_common import RenderConfig
+from g4splat_torch.parallel import mesh as pmesh
 
 
 def render_camera_batch(scene: GaussianScene, cameras: Camera,
                         out_dir: Optional[str] = None, backend: str = "cuda",
-                        n_views: Optional[int] = None) -> torch.Tensor:
+                        n_views: Optional[int] = None, mesh=None) -> torch.Tensor:
     """The first `n_views` (default all) cameras' (N, H, W, 3) renders on the
-    scene's device; written to `out_dir/{v:05d}.png` when out_dir is given."""
+    scene's device (the mesh's home device with a mesh); written to
+    `out_dir/{v:05d}.png` when out_dir is given."""
     n = cameras.w2c.shape[0] if n_views is None else n_views
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
+    fan = mesh is not None and mesh.shape["data"] > 1
     renders = []
     with torch.no_grad():
+        if fan:
+            renders = list(pmesh.render_views(mesh, scene, cameras, n, backend=backend)["render"])
         for v in range(n):
-            img = render(camera_at(cameras, v), scene,
-                         config=RenderConfig(compute_distortion=False),
-                         backend=backend)["render"]
-            renders.append(img)
+            if not fan:
+                renders.append(render(camera_at(cameras, v), scene,
+                                      config=RenderConfig(compute_distortion=False),
+                                      backend=backend)["render"])
             if out_dir is not None:
-                save_image_async(os.path.join(out_dir, f"{v:05d}.png"), img)
+                save_image_async(os.path.join(out_dir, f"{v:05d}.png"), renders[v])
     flush_io()
     return torch.stack(renders)
 

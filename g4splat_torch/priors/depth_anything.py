@@ -28,6 +28,7 @@ from g4splat_torch.core.geometry import depth_to_normal
 from g4splat_torch.core.resize import resize_bilinear
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
 from g4splat_torch.ops.depth_align import fit_disparity_to_depth
+from g4splat_torch.parallel.mesh import Replicas, map_over_data
 from g4splat_torch.priors.dinov2 import DINOv2, VIT_CONFIGS
 from g4splat_torch.priors.dpt import DPTHead, resize_bilinear_ac
 
@@ -79,6 +80,7 @@ class DepthAnything:
                 with torch.device(dev):
                     model = DepthAnythingV2(encoder)
         self.model = model.eval()
+        self._replicas = Replicas(self.model)
 
     @property
     def device(self) -> torch.device:
@@ -118,16 +120,22 @@ class DepthAnything:
 
     @torch.no_grad()
     @fp32_math()
-    def infer_images(self, images, max_batch: int = 16) -> torch.Tensor:
+    def infer_images(self, images, mesh=None, max_batch: int = 16) -> torch.Tensor:
         """(V, H, W, 3) uint8 or float [0, 1] → (V, H, W) disparity on the
-        model's device, one ViT forward per slab of `max_batch` views."""
+        model's device, one ViT forward per slab of `max_batch` views. With a
+        `parallel.mesh.DeviceMesh` each slab's views split over its `data`
+        entries (padded by repeating the last view), each entry running the
+        model's copy on its device."""
         imgs = self._prepare(images)
         V, H, W = imgs.shape[:3]
         nh, nw = self._target_size(H, W, self.input_size)
         outs = []
         for i in range(0, V, max_batch):
             x = self._normalize(resize_bilinear(imgs[i:i + max_batch], (nh, nw)))
-            disp = self.model(x)
+            if mesh is not None and mesh.shape["data"] > 1:
+                disp = map_over_data(mesh, lambda dev, xs: self._replicas.on(dev)(xs), x)
+            else:
+                disp = self.model(x)
             outs.append(resize_bilinear_ac(disp[:, None], (H, W))[:, 0])
         return torch.cat(outs)
 

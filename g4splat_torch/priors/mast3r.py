@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
+from g4splat_torch.parallel.mesh import Replicas, map_over_data
 from g4splat_torch.priors.dpt import DPTOutputAdapter
 from g4splat_torch.priors.vit import LN_EPS, Block, DecoderBlock, Mlp, PatchEmbed, grid_positions
 
@@ -164,6 +165,7 @@ class MASt3RModel:
                 with torch.device(dev):
                     model = AsymmetricMASt3R(cfg)
         self.model = model.eval()
+        self._replicas = Replicas(self.model)
 
     @property
     def device(self) -> torch.device:
@@ -174,8 +176,12 @@ class MASt3RModel:
 
     @torch.no_grad()
     @fp32_math()
-    def infer_pair(self, img1, img2):
-        return self.model(self._in(img1), self._in(img2))
+    def infer_pair(self, img1, img2, model: Optional[nn.Module] = None):
+        """Both images' head dicts from `model` (default: this wrapper's)."""
+        model = model or self.model
+        dev = next(model.parameters()).device
+        return model(torch.as_tensor(img1, device=dev).to(torch.float32),
+                     torch.as_tensor(img2, device=dev).to(torch.float32))
 
     @torch.no_grad()
     @fp32_math()
@@ -189,17 +195,24 @@ class MASt3RModel:
         out22, out12 = self.infer_pair(img2, img1)
         return out11, out21, out22, out12
 
-    def symmetric_inference_batch(self, imgs1, imgs2, max_batch: int = 8):
+    def symmetric_inference_batch(self, imgs1, imgs2, mesh=None, max_batch: int = 8):
         """Symmetric inference over a pair batch (B, H, W, 3) × 2: both
         orderings ride one doubled batch, one `infer_pair` per chunk of
-        `max_batch`. Returns B per-pair 4-tuples (X11, X21, X22, X12), each
-        map with a leading axis of 1."""
+        `max_batch` (per device). With a `parallel.mesh.DeviceMesh` the pair
+        axis splits over its `data` entries (padded by repeating the last
+        pair), each entry running the model's copy on its device. Returns B
+        per-pair 4-tuples (X11, X21, X22, X12), each map with a leading axis
+        of 1, on the model's device."""
         a, b = self._in(imgs1), self._in(imgs2)
         B = a.shape[0]
         q, s = torch.cat([a, b]), torch.cat([b, a])
-        chunks = [self.infer_pair(q[i:i + max_batch], s[i:i + max_batch])
-                  for i in range(0, q.shape[0], max_batch)]
-        o1, o2 = _cat([c[0] for c in chunks]), _cat([c[1] for c in chunks])
+        if mesh is not None and mesh.shape["data"] > 1:
+            o1, o2 = map_over_data(mesh, lambda dev, x, y: self.infer_pair(
+                x, y, self._replicas.on(dev)), q, s, per_device=max_batch)
+        else:
+            chunks = [self.infer_pair(q[i:i + max_batch], s[i:i + max_batch])
+                      for i in range(0, q.shape[0], max_batch)]
+            o1, o2 = _cat([c[0] for c in chunks]), _cat([c[1] for c in chunks])
 
         def take(d, i):
             return {k: v[i:i + 1] for k, v in d.items()}

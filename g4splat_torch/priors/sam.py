@@ -54,6 +54,7 @@ from torch import nn
 
 from g4splat_torch.core.resize import resize_bilinear
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
+from g4splat_torch.parallel.mesh import Replicas, map_over_data
 from g4splat_torch.priors.vit import gelu_exact
 
 LN_EPS = 1e-6       # every LayerNorm, the two-way blocks' too (official: 1e-5 there)
@@ -643,6 +644,7 @@ class SAMPredictor:
                     if name in missing:
                         t.zero_()
         self.model = model.eval()
+        self._replicas = Replicas(self.model)
 
     @property
     def device(self) -> torch.device:
@@ -650,8 +652,8 @@ class SAMPredictor:
 
     @torch.no_grad()
     @fp32_math()
-    def _encode(self, img: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_image(img)
+    def _encode(self, img: torch.Tensor, model: Optional[nn.Module] = None) -> torch.Tensor:
+        return (model or self.model).encode_image(img)
 
     @torch.no_grad()
     @fp32_math()
@@ -661,12 +663,21 @@ class SAMPredictor:
     def _images(self, images) -> torch.Tensor:
         return torch.as_tensor(images, device=self.device).to(torch.float32)
 
-    def encode_images(self, images, max_batch: int = 2) -> torch.Tensor:
+    def encode_images(self, images, mesh=None, max_batch: int = 2) -> torch.Tensor:
         """(V, H, W, 3) views in [0, 1] → (V, gh, gw, D) embeddings, one
-        encoder call per slab of `max_batch`: each ViT-H global block at
-        1024 px holds 16 × 4096² fp32 logits per view (1.07 GB)."""
+        encoder call per slab of `max_batch` views per device: each ViT-H
+        global block at 1024 px holds 16 × 4096² fp32 logits per view
+        (1.07 GB). With a `parallel.mesh.DeviceMesh` the views split over its
+        `data` entries (padded by repeating the last view), each entry running
+        the model's copy on its device; the embeddings come back on the
+        model's device."""
         imgs = self._images(images)
         S = self.cfg.img_size
+        if mesh is not None and mesh.shape["data"] > 1:
+            return map_over_data(
+                mesh, lambda dev, x: self._encode(resize_bilinear(x, (S, S)),
+                                                  self._replicas.on(dev)),
+                imgs, per_device=max_batch)
         return torch.cat([self._encode(resize_bilinear(imgs[i:i + max_batch], (S, S)))
                           for i in range(0, len(imgs), max_batch)])
 
@@ -702,14 +713,15 @@ class SAMPredictor:
 
 def sam_mask_generator(predictor: SAMPredictor, **kw) -> Callable:
     """Adapter for PlaneExcavator(mask_generator=…): image → masks. The
-    callable also carries ``.batch(images)``: the encoder runs over the whole
-    view stack in slabs, prompting and NMS per view; the orchestrator uses
-    it when present."""
+    callable also carries ``.batch(images, mesh=None)``: the encoder runs
+    over the whole view stack in slabs (its views split over the mesh's
+    `data` entries when one is given), prompting and NMS per view; the
+    orchestrator uses it when present."""
     def gen(image) -> List[np.ndarray]:
         return predictor.generate_masks(image, **kw)
 
-    def gen_batch(images) -> List[List[np.ndarray]]:
-        embs = predictor.encode_images(images)
+    def gen_batch(images, mesh=None) -> List[List[np.ndarray]]:
+        embs = predictor.encode_images(images, mesh=mesh)
         return [predictor.generate_masks(images[v], emb=embs[v:v + 1], **kw)
                 for v in range(len(images))]
 

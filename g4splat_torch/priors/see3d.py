@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from g4splat_torch.ops.attention import memory_efficient_attention
+from g4splat_torch.parallel.mesh import Replicas, run_spmd
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 LN_EPS = 1e-6
@@ -93,7 +94,14 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock3D(nn.Module):
     """Self-attention over all frames jointly, then per-frame cross-attention
-    and a GEGLU feed-forward (mv_unet.py:229-272)."""
+    and a GEGLU feed-forward (mv_unet.py:229-272).
+
+    With `shard` (a `parallel.mesh.Shard` of a `run_spmd` call) the frame
+    batch is split over the mesh's entries: every per-frame op stays local,
+    and the joint attention gathers the normalised tokens of every entry
+    once, so each local query frame attends to its own branch's F·l keys and
+    values. LayerNorm is per token, so normalising before the gather equals
+    normalising after it."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
         super().__init__()
@@ -104,10 +112,18 @@ class BasicTransformerBlock3D(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x, context, num_frames: int, attention: Optional[Attention] = None):
+    def forward(self, x, context, num_frames: int, attention: Optional[Attention] = None,
+                shard=None):
         bf, l, c = x.shape
-        h = self.norm1(x).reshape(bf // num_frames, num_frames * l, c)
-        x = x + self.attn1(h, attention=attention).reshape(bf, l, c)
+        if shard is None:
+            h = self.norm1(x).reshape(bf // num_frames, num_frames * l, c)
+            x = x + self.attn1(h, attention=attention).reshape(bf, l, c)
+        else:
+            x_n = self.norm1(x)
+            full = shard.all_gather(x_n)
+            g = shard.index * bf + torch.arange(bf, device=x.device)
+            kv = full.reshape(full.shape[0] // num_frames, num_frames * l, c)[g // num_frames]
+            x = x + self.attn1(x_n, kv, attention=attention)
         x = x + self.attn2(self.norm2(x), context, attention=attention)
         return x + self.ff(self.norm3(x))
 
@@ -128,12 +144,13 @@ class SpatialTransformer3D(nn.Module):
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
-    def forward(self, x, context, num_frames: int, attention: Optional[Attention] = None):
+    def forward(self, x, context, num_frames: int, attention: Optional[Attention] = None,
+                shard=None):
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
         for blk in self.transformer_blocks:
-            h = blk(h, context, num_frames, attention=attention)
+            h = blk(h, context, num_frames, attention=attention, shard=shard)
         h = self.proj_out(h)
         return x + h.reshape(B, H, W, C).permute(0, 3, 1, 2)
 
@@ -285,30 +302,32 @@ class MultiViewUNet(nn.Module):
         nn.init.zeros_(self.out[2].bias)
 
     @staticmethod
-    def _run(layers, h, emb, context, num_frames, attention):
+    def _run(layers, h, emb, context, num_frames, attention, shard):
         for layer in layers:
             if isinstance(layer, ResBlock):
                 h = layer(h, emb)
             elif isinstance(layer, SpatialTransformer3D):
-                h = layer(h, context, num_frames, attention=attention)
+                h = layer(h, context, num_frames, attention=attention, shard=shard)
             else:
                 h = layer(h)
         return h
 
     def forward(self, x, t, context, num_frames: int, camera=None,
-                attention: Optional[Attention] = None):
+                attention: Optional[Attention] = None, shard=None):
+        """`shard`: this call's part of a frame batch split over a mesh
+        (`BasicTransformerBlock3D`); `num_frames` stays the branch's."""
         emb = self.time_embed(timestep_embedding(t, self.cfg.model_channels))
         if camera is not None:
             emb = emb + self.camera_embed(camera)
         hs = []
         h = x
         for layers in self.input_blocks:
-            h = self._run(layers, h, emb, context, num_frames, attention)
+            h = self._run(layers, h, emb, context, num_frames, attention, shard)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context, num_frames, attention)
+        h = self._run(self.middle_block, h, emb, context, num_frames, attention, shard)
         for layers in self.output_blocks:
             h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb, context, num_frames,
-                          attention)
+                          attention, shard)
         return self.out(h)
 
 
@@ -408,11 +427,37 @@ class See3DPipeline:
       generated frames and keeps the same context (:666-672), combined as
       ``(1+s)·cond − s·uncond`` (:692-694);
     * cond and uncond frames go through one UNet call with ``num_frames=F``.
+
+    With a `parallel.mesh.DeviceMesh` whose `data` size divides 2F, that
+    call's frames split over the `data` entries (n = 2 is the cond / uncond
+    split), each entry running the UNet's copy on its device in its own
+    thread and meeting the others in the joint attention's gather; the DDIM
+    state stays on the home device. Otherwise the call is unsharded.
     """
 
-    def __init__(self, unet: MultiViewUNet, ddim: DDIMConfig = DDIMConfig()):
+    def __init__(self, unet: MultiViewUNet, ddim: DDIMConfig = DDIMConfig(), mesh=None):
         self.unet = unet
         self.sampler = DDIMSampler(ddim)
+        self.mesh = mesh
+        self._replicas = Replicas(unet)
+
+    def _denoise(self, inp, t_vec, context, num_frames: int,
+                 attention: Optional[Attention]) -> torch.Tensor:
+        """The UNet over the 2F cond + uncond frames, split over the mesh's
+        `data` entries when their number divides 2F."""
+        n = self.mesh.shape["data"] if self.mesh is not None else 1
+        if n == 1 or inp.shape[0] % n:
+            return self.unet(inp, t_vec, context, num_frames=num_frames, attention=attention)
+        devs = self.mesh.data_devices
+        b = inp.shape[0] // n
+
+        def entry(shard):
+            dev, part = devs[shard.index], slice(shard.index * b, (shard.index + 1) * b)
+            return self._replicas.on(dev)(inp[part].to(dev), t_vec[part].to(dev),
+                                          context[part].to(dev), num_frames=num_frames,
+                                          attention=attention, shard=shard)
+
+        return torch.cat([o.to(inp.device) for o in run_spmd(devs, entry)])
 
     def draw_noise(self, shape, device, generator: Optional[torch.Generator] = None
                    ) -> Noise:
@@ -453,8 +498,7 @@ class See3DPipeline:
             cond = torch.cat([x, mix, masks], dim=1)
             unc = torch.cat([x, gt * img_latents, gt * masks], dim=1)
             t_vec = torch.full((2 * Fn,), t, dtype=torch.int64, device=dev)
-            out = self.unet(torch.cat([cond, unc], dim=0), t_vec, ctx2, num_frames=Fn,
-                            attention=attention)
+            out = self._denoise(torch.cat([cond, unc], dim=0), t_vec, ctx2, Fn, attention)
             s = cfg.guidance_scale
             model_out = (1 + s) * out[:Fn] - s * out[Fn:]
             if cfg.guidance_rescale > 0.0:

@@ -105,6 +105,8 @@ def restore_trainer(trainer, scene_arrays, adam, updates, dstate, iteration: int
     trainer.dstate = DensifyState(*(torch.from_numpy(np.asarray(dstate[k])).to(
         dev, torch.float32) for k in DSTATE_FIELDS))
     trainer.iteration = int(iteration)
+    if trainer.slab_mode:
+        trainer._refresh_partitions()
 
 
 def load_trainer_state(path: str, trainer) -> None:

@@ -11,10 +11,18 @@ SH degree and recompute the mip filter.
 B1/B2 Function by default) → Adam → stat accumulation. The scene's six
 parameter tensors are the optimizer's leaves; densify, opacity reset and
 capacity growth write into them (or replace them, carrying the Adam moments
-slot for slot). The JAX package's mesh, data-parallel and slab modes and its
-entry-buffer auto-tune are not part of this path: the port's entry list is
-sized exactly, so `n_overflow` is always 0 and the `raster_buf_*` fields are
-accepted and ignored.
+slot for slot). The JAX package's entry-buffer auto-tune is not part of this
+path: the port's entry list is sized exactly, so `n_overflow` is always 0 and
+the `raster_buf_*` fields are accepted and ignored.
+
+`Trainer(mesh=…)` takes a `parallel.mesh.DeviceMesh` (a mesh of one entry is
+no mesh):
+- `model` > 1: slab mode (`parallel.gaussian_shard`), one view per step with
+  the splat buffer in depth slabs over `model`, the single-device step's
+  result up to the median's rounding;
+- otherwise data-parallel (`make_dp_train_step`), `n_data` views per step,
+  one per `data` entry, gradients averaged. Opt-in only: the JAX package
+  measured it 11 dB below single-device training at equal view visits.
 """
 
 from __future__ import annotations
@@ -235,6 +243,17 @@ def losses_from_render(
     return total, aux
 
 
+def pad_capacity(scene: GaussianScene, multiple: int) -> GaussianScene:
+    """`scene` with dead slots appended until its capacity divides by
+    `multiple` (slab mode cuts the buffer into equal slabs)."""
+    pad = (-scene.capacity) % multiple
+    if not pad:
+        return scene
+    empty = GaussianScene.empty(pad, scene.max_sh_degree, device=scene.device)
+    return scene.replace(**{k: torch.cat([getattr(scene, k), getattr(empty, k)])
+                            for k in PARAM_FIELDS + ("alive", "mip_filter")})
+
+
 @fp32_math()
 def train_step(
     scene: GaussianScene,
@@ -272,6 +291,94 @@ def train_step(
     return dstate, metrics
 
 
+def make_dp_train_step(mesh):
+    """The data-parallel step over the mesh's `data` axis: ``step(scene,
+    optimizer, dstate, cameras, views, view_ids, iteration, cfg, shifts=None,
+    generator=None) -> (dstate, metrics)``.
+
+    The views `view_ids` split over `data` in order (B = len / n_data per
+    entry). Each entry renders its views on its device from its copy of the
+    scene (one per distinct device, moved differentiably) and takes the mean
+    of their losses; the step's loss is the mean over entries on the home
+    device, so its gradient is the entries' gradients averaged. Each view's
+    depth-order shifts are drawn in global view order from `generator`
+    before the fan-out, so the result does not depend on the mesh size. The
+    densify statistics are those of the views processed one by one: the
+    screen-space gradient scaled back by the number of views and summed,
+    `denom` summed, the radii's max. dstate may be None outside the densify
+    window."""
+    from g4splat_torch.parallel.mesh import fan_out
+
+    n = mesh.shape["data"]
+    devs = mesh.data_devices
+    fields = ("image", "prior_depth", "prior_normal", "prior_curv", "confidence",
+              "color_weight")
+
+    @fp32_math()
+    def step(scene, optimizer, dstate, cameras, views, view_ids, iteration, cfg,
+             shifts=None, generator=None):
+        V = len(view_ids)
+        if V % n:
+            raise ValueError(f"views ({V}) must divide over the data axis ({n})")
+        B = V // n
+        N = scene.capacity
+        home = scene.device
+        if shifts is None and cfg.use_chart_priors and cfg.use_depth_order:
+            H, W = views.image.shape[1:3]
+            shifts = [L.draw_depth_order_shifts((H, W), generator, cfg.depth_order_sample,
+                                                device=home) for _ in range(V)]
+        scenes = {dev: scene.to(dev) for dev in dict.fromkeys(devs)}
+        offsets = [torch.zeros((N, 2), device=devs[g // B], requires_grad=True)
+                   for g in range(V)]
+
+        def entry(d):
+            """Entry d's sums over its views (loss, visibility, l1, psnr,
+            drops) and its radii's max, moved to the home device."""
+            dev, sums, radii = devs[d], None, None
+            for g in range(d * B, (d + 1) * B):
+                v = view_ids[g]
+                view = {k: getattr(views, k)[v].to(dev) for k in fields}
+                view["scale_factor"] = views.scale_factor.to(dev)
+                loss, aux = compute_losses(scenes[dev], camera_at(cameras, v).to(dev), view,
+                                           cfg, iteration, offsets[g],
+                                           None if shifts is None else shifts[g])
+                vis = aux["visibility"].to(torch.float32)
+                now = {"loss": loss, "vis": vis, "l1": aux["l1"], "psnr": aux["psnr"],
+                       "n_dropped": aux["n_dropped"]}
+                sums = now if sums is None else {k: sums[k] + now[k] for k in now}
+                r = aux["radii"] * vis
+                radii = r if radii is None else torch.maximum(radii, r)
+            return {k: x.to(home) for k, x in sums.items()}, radii.to(home)
+
+        parts = fan_out(devs, entry)
+
+        def mean(k):                        # per entry over B views, then over entries
+            return torch.stack([p[k] / B for p, _ in parts]).mean()
+
+        loss = mean("loss")
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        adam_step(optimizer, cfg)
+        if cfg.densify_from_iter <= iteration < cfg.densify_until_iter:
+            d_grad = sum(torch.linalg.norm(o.grad, dim=-1).to(home) for o in offsets) * V
+            dstate = DensifyState(
+                grad_accum=dstate.grad_accum + d_grad,
+                denom=dstate.denom + sum(p["vis"] for p, _ in parts),
+                max_radii2d=torch.maximum(dstate.max_radii2d,
+                                          torch.stack([r for _, r in parts]).amax(0)))
+        metrics = {
+            "loss": loss.detach(),
+            "l1": mean("l1").detach(),
+            "psnr": mean("psnr").detach(),
+            "n_alive": scene.num_alive,
+            "n_dropped": sum(p["n_dropped"] for p, _ in parts),
+            "n_overflow": torch.zeros((), dtype=torch.int32, device=home),
+        }
+        return dstate, metrics
+
+    return step
+
+
 def adam_step(optimizer: torch.optim.Adam, cfg: TrainConfig):
     """Set the xyz lr from the schedule at the update count, then step."""
     for group in optimizer.param_groups:
@@ -302,10 +409,31 @@ class Trainer:
     """Host-side loop around `train_step` and the maintenance ops."""
 
     def __init__(self, scene: GaussianScene, cameras: Camera, views: ViewData,
-                 cfg: TrainConfig, seed: int = 0):
+                 cfg: TrainConfig, seed: int = 0, mesh=None):
         self.cfg = cfg
         self.cameras = cameras
         self.views = views
+        # Mesh modes (module docstring); the scene, the views and the
+        # optimizer live on the mesh's home device.
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.slab_mode = self.mesh is not None and self.mesh.shape["model"] > 1
+        self.views_per_step = 1
+        if self.mesh is not None:
+            if scene.device != self.mesh.home:
+                raise ValueError(f"the scene lies on {scene.device}, the mesh's home "
+                                 f"device is {self.mesh.home}")
+        if self.slab_mode:
+            from g4splat_torch.parallel.gaussian_shard import make_slab_sharded_train_step
+
+            scene = pad_capacity(scene, self.mesh.shape["model"])
+            self._slab_step = make_slab_sharded_train_step(self.mesh)
+        elif self.mesh is not None:
+            n_data, n_views = self.mesh.shape["data"], views.image.shape[0]
+            if n_views % n_data:
+                raise ValueError(f"views ({n_views}) must divide over the data axis "
+                                 f"({n_data}) for data-parallel training")
+            self.views_per_step = n_data
+            self._dp_step = make_dp_train_step(self.mesh)
         self.params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
                        for k in PARAM_FIELDS}
         self.scene = with_params(scene, self.params)
@@ -317,8 +445,20 @@ class Trainer:
         self.scene_extent = cfg.spatial_lr_scale
         self.iteration = 0
         self._stack: list = []
+        if self.slab_mode:
+            self._refresh_partitions()
         if cfg.use_mip_filter:
             self.scene = self._mip(self.scene.replace(use_mip_filter=True))
+
+    @torch.no_grad()
+    def _refresh_partitions(self):
+        """Per-view depth orders of the splats for slab mode, and their
+        inverses: at init and after any op that moves or re-populates splats
+        (densify, capacity growth, a restored checkpoint)."""
+        from g4splat_torch.parallel.gaussian_shard import view_depth_permutations
+
+        self._perms = view_depth_permutations(self.scene, self.cameras)
+        self._invs = torch.argsort(self._perms, dim=1)
 
     @torch.no_grad()
     def _mip(self, scene: GaussianScene) -> GaussianScene:
@@ -336,6 +476,10 @@ class Trainer:
             self._stack = list(self.rng.permutation(self.views.image.shape[0]))
         return int(self._stack.pop())
 
+    def _dp_batch(self) -> list:
+        """The next `views_per_step` views, one per `data` entry."""
+        return [self._next_view() for _ in range(self.views_per_step)]
+
     def _view_slice(self, v: int):
         view = {k: getattr(self.views, k)[v]
                 for k in ("image", "prior_depth", "prior_normal", "prior_curv",
@@ -349,6 +493,8 @@ class Trainer:
         carry the Adam moments over slot for slot (the static-capacity answer
         to the reference's tensor reallocation, gaussian_model.py:500-560)."""
         old = self.scene
+        if self.slab_mode:
+            new_capacity += (-new_capacity) % self.mesh.shape["model"]
         alive_idx = torch.nonzero(old.alive).squeeze(1)
         n = alive_idx.numel()
         print(f"[trainer] densify overflow: growing capacity {old.capacity} -> "
@@ -373,6 +519,9 @@ class Trainer:
                 carried[key] = out
             self.optimizer.state[ng["params"][0]] = carried
         self.dstate = DensifyState.zero(new_capacity, device=grown.device)
+        # The steps hold nothing capacity-shaped but slab mode's orders.
+        if self.slab_mode:
+            self._refresh_partitions()
         if self.cfg.use_mip_filter:
             self.scene = self._mip(self.scene)
 
@@ -384,9 +533,20 @@ class Trainer:
         if it % cfg.sh_increase_interval == 0:
             self.scene = self.scene.one_up_sh_degree()
 
-        cam, view = self._view_slice(self._next_view())
-        self.dstate, metrics = train_step(self.scene, self.optimizer, self.dstate, cam,
-                                          view, it, cfg, generator=self.generator)
+        if self.slab_mode:
+            v = self._next_view()
+            cam, view = self._view_slice(v)
+            self.dstate, metrics = self._slab_step(
+                self.scene, self.optimizer, self.dstate, cam, view, it, cfg, self._perms[v],
+                self._invs[v], generator=self.generator)
+        elif self.mesh is not None:
+            self.dstate, metrics = self._dp_step(
+                self.scene, self.optimizer, self.dstate, self.cameras, self.views,
+                self._dp_batch(), it, cfg, generator=self.generator)
+        else:
+            cam, view = self._view_slice(self._next_view())
+            self.dstate, metrics = train_step(self.scene, self.optimizer, self.dstate, cam,
+                                              view, it, cfg, generator=self.generator)
 
         if cfg.densify_from_iter <= it < cfg.densify_until_iter:
             if it % cfg.densification_interval == 0:
@@ -413,6 +573,8 @@ class Trainer:
                 cfg.min_opacity, max_screen, cfg.percent_dense, generator=self.generator)
             self._set_scene(scene)
             zero_moments_at(self.optimizer, changed)
+        if self.slab_mode:
+            self._refresh_partitions()
         # Overflow → grow the static buffer (capacity doubles, bounded by
         # cfg.max_capacity; one host sync per densify interval).
         if int(report.n_dropped) > 0 and self.scene.capacity < cfg.max_capacity:

@@ -2,7 +2,7 @@
 phases 14 and 15 alone.
 
 The adaptive-tetra extraction at production settings (PRODUCTION_MESH_CONFIG)
-on the synthetic box room (chip_smoke.MESH_DENSITY splats per m²) seen by
+on the synthetic box room (chip_smoke.ADAPTIVE_DENSITY splats per m²) seen by
 room_cameras(8, 512, 384), with its gates (B1's launch count, B1 vs its
 plain version, the TSDF from B1's maps vs the plain version's, the mesh, the
 PLY round trip, its completeness and accuracy against the culled GT mesh),
@@ -122,7 +122,7 @@ def main():
         print(f"== TSDF pass, box room at {cs.MESH_DENSITY} splats per m²")
         time_tsdf(args.tsdf_chunks)
     else:
-        print(f"== mesh main path, box room at {cs.MESH_DENSITY} splats per m²")
+        print(f"== mesh main path, box room at {cs.ADAPTIVE_DENSITY} splats per m²")
         r = cs.mesh_phase()
         print("== mesh timings")
         cs.print_mesh_timings(r)

@@ -6,7 +6,8 @@ inward_cameras(8, 512, 384): render_chart_views, excavate_planes,
 refine_plane_depths and train_gaussians, then for stages 1-3 see3d_stage,
 refine_plane_depths and train_gaussians, with full-width See3D priors and
 DepthAnything V2 ViT-L on seeded random weights, PipelineConfig's defaults
-save chip_smoke.LOOP_ITERATIONS steps per train_gaussians and 5 DDIM
+save chip_smoke.LOOP_SELECT views selected per stage,
+chip_smoke.LOOP_ITERATIONS steps per train_gaussians and 5 DDIM
 timesteps; its gates (the stage-1 sweep with B1's plain version, DA2 card vs
 CPU, the depth lift, the merge, the files, finite training, launch counts);
 then each method's host seconds and launches, each stage's counts, DA2's ms

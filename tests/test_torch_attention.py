@@ -20,6 +20,16 @@ import g4splat_tpu.ops.attention as JA
 from g4splat_torch.ops import attention_cuda
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def qkv(B, N, M, H, D, seed, scale=1.0):
     rng = np.random.RandomState(seed)
     return tuple((s * rng.randn(B, n, H, D)).astype(np.float32)

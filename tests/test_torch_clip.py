@@ -28,6 +28,16 @@ VISION = dict(embed_dim=32, depth=2, num_heads=2, patch_size=28, image_size=224,
 TEXT = dict(width=32, depth=2, num_heads=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_of(cls, kw, params):
     m = cls(**kw)
     m.load_state_dict(flax_state_dict(jax.tree.map(np.asarray, params)), strict=True)

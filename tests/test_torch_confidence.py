@@ -21,6 +21,16 @@ from g4splat_tpu.pipeline.planes import compute_plane_aligned_depth
 V, H, W = 4, 24, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene():
     jc = stack_cameras([lookat_camera([0.5 * np.sin(a), -0.5, -2.2], [0.0, 0.3, 0.6],

@@ -21,6 +21,16 @@ from g4splat_tpu.core import transforms as jtr
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(t, j, atol=ATOL):
     np.testing.assert_allclose(t.detach().cpu().numpy(), np.asarray(j), atol=atol, rtol=0)
 

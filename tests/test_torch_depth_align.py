@@ -20,6 +20,16 @@ REL = 1e-5
 FIT_REL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def maps(seed, H=24, W=32):
     rng = np.random.default_rng(seed)
     depth = rng.uniform(1.0, 4.0, (H, W)).astype(np.float32)

@@ -26,6 +26,16 @@ import g4splat_torch.priors.dpt as TP
 from g4splat_torch.convert import depth_anything_state_dict, flax_state_dict
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jittered(params, seed):
     """Flax params with every leaf moved by seeded noise (LayerScale's 1e-5
     and the zero class token would otherwise hide their paths)."""

@@ -34,6 +34,16 @@ from g4splat_tpu.pipeline.orchestrator import G4SplatPipeline
 REL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def lpips_pair():
     params = jim.init_lpips_params(seed=0)

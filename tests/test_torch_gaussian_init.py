@@ -29,6 +29,16 @@ V, H, W = 3, 18, 24
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def views():
     jc = stack_cameras([lookat_camera([0.4 * np.sin(a), -0.5, -2.0], [0.0, 0.3, 0.6],

@@ -20,6 +20,16 @@ FIELDS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw", "rotation_raw",
           "alive", "mip_filter")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(t, j, atol=ATOL, rtol=0.0):
     np.testing.assert_allclose(t.detach().cpu().numpy(), np.asarray(j), atol=atol, rtol=rtol)
 

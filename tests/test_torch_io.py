@@ -21,6 +21,16 @@ import g4splat_torch.io.ply as TPLY
 from g4splat_torch.utils.config import CONFIG_ROOT, load_config, parse_flat_yaml
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("shape", [(1, 1), (7, 5), (384, 512)])
 def test_depth_tiff_round_trip(tmp_path, shape):
     d = np.random.default_rng(0).normal(size=shape).astype(np.float32) * 3

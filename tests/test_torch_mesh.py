@@ -36,6 +36,16 @@ from g4splat_tpu.utils.config import apply_overrides
 RADIUS = 0.5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def sphere_arrays(n=800, r=RADIUS, seed=0):
     """tests/test_mesh.py::sphere_scene's arrays."""
     rng = np.random.RandomState(seed)

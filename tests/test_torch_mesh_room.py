@@ -16,6 +16,8 @@ package there, whatever the reading.
 """
 
 import numpy as np
+import pytest
+import torch
 from scipy.spatial import cKDTree
 
 from g4splat_torch.convert import camera_from, scene_from
@@ -26,6 +28,16 @@ from g4splat_tpu.eval import synthetic as jsyn
 from g4splat_tpu.pipeline import mesh_extraction as jme
 
 DENSITY, VIEWS, PER_NEIGHBOR = 1000, (4, 96, 72), 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_adaptive_tsdf_box_room_production_config():

@@ -20,6 +20,16 @@ TOL = 1e-5
 W, H = 64, 48
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_cameras(tc):
     return jcam.stack_cameras([
         jcam.make_camera(*(getattr(camera_at(tc, v), k).numpy()

@@ -81,6 +81,16 @@ CONFIG = dict(select_inpaint_num=2, vis_grid_resolution=32, train_iterations=10,
               render_backend="tiled")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class GreyDisparity:
     """A stand-in depth model: disparity 0.2 + the pixel's grey level."""
 

@@ -37,6 +37,16 @@ FLOAT_KEYS = ["render", "rend_alpha", "rend_normal", "rend_normal_cam", "rend_di
 MODES = {"infer": (False, True), "nodist": (True, False), "full": (True, True)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def np_(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -37,6 +37,16 @@ LOSS_KEYS = ("render", "rend_alpha", "rend_normal", "rend_depth", "depth_median"
              "surf_normal", "final_T")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel(a, b):
     a, b = np_(a), np_(b)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))

@@ -24,6 +24,16 @@ from test_torch_rasterize import BG, np_
 from test_torch_rasterize_bwd import Case, backward_args, deep, entry_problem, spread  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def closeup():
     # Surfels 0.25-1.0 from the camera, many seen at a slant: tens of pixels

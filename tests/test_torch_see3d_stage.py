@@ -36,6 +36,16 @@ VAE = dict(base_ch=16, ch_mult=(1, 2), z_ch=4)
 STEPS = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def carried(cls, kw, params):
     m = cls(**kw)
     m.load_state_dict(flax_state_dict(jax.tree.map(np.asarray, params)), strict=True)

@@ -28,6 +28,16 @@ ATOL = 1e-5
 W, H, V, N = 32, 24, 3, 4096
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(t, j, atol=ATOL, rtol=0.0):
     t = t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
     np.testing.assert_allclose(t, np.asarray(j), atol=atol, rtol=rtol)

@@ -24,6 +24,16 @@ from g4splat_torch.priors import vae as T
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the machine's
+    cores (module scope, so that it also holds for the module's fixtures)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(x):
     return torch.from_numpy(np.array(x, np.float32)).permute(0, 3, 1, 2)
 
