@@ -46,14 +46,15 @@ Phases (any failure exits non-zero and prints no result line):
      finite losses, loss down and PSNR up over the view cycle, and exactly
      one B1 and one B2 launch per step; no pair outside its reach box (B1
      and B2) on the trained scene;
-  9. training timings: the median step and its split (forward render,
-     losses, backward, Adam, densify); at the training shape (the first
-     step's scene): B1's per-tile reads, reach-box skip share, registers,
-     waves and bound; B2's per-tile walk lengths, its walk kernel's registers
-     and resident blocks, the (warp, entry) steps its reach boxes skip (none
-     holding a contributor), its work list and its gradients vs their plain
-     versions, and its time (whole call) beside its bound and the plain
-     version's; peak memory.
+  9. training timings: the median step and its split by the program's
+     spans (step, preprocess, binning, losses, backward, Adam, the blocking
+     calls; densify); at the training shape (the first step's scene): B1's
+     per-tile reads, reach-box skip share, registers, waves and bound; B2's
+     per-tile walk lengths, its walk kernel's registers and resident blocks,
+     the (warp, entry) steps its reach boxes skip (none holding a
+     contributor), its work list and its gradients vs their plain versions,
+     and its time (whole call) beside its bound and the plain version's; peak
+     memory.
  10. B3 vs its plain version (chunked_attention) at every attention shape of
      the See3D main path, at odd shapes and at D = 128: max|kernel - plain|
      <= B3_TOL * max|plain|, with the dense plain version's error beside
@@ -1055,46 +1056,21 @@ def training_data(n_live, capacity, w, h, n_views):
     return init.replace(active_sh_degree=3), stack_cameras(cams), views
 
 
-def timed_step(trainer, events=True):
-    """One training step run stage by stage with the functions train_step
-    calls (render and the losses, backward, Adam with the stat accumulation),
-    each timed by CUDA events from the end of the one before, with TF32 off
-    as train_step runs. Returns {stage: ms}."""
+def step_split(trainer, n=3):
+    """Host ms per step of each of the program's `g4s:` spans over `n`
+    `Trainer.step` calls, profiled as the benchmark's traced window profiles
+    them (`perfbench.harness.Recorder`: the host's `record_function` ranges
+    and the card's activity)."""
     import torch
 
-    from g4splat_torch.device import fp32_math
-    from g4splat_torch.ops.rasterize import render
-    from g4splat_torch.ops.rasterize_common import RenderConfig
-    from g4splat_torch.train.densify import accumulate_stats
-    from g4splat_torch.train.trainer import adam_step, losses_from_render
+    from perfbench.harness import Recorder, summarize
 
-    cfg = trainer.cfg
-    trainer.iteration += 1
-    it = trainer.iteration
-    cam, view = trainer._view_slice(trainer._next_view())
-    scene = trainer.scene
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    torch.cuda.synchronize()
-    with fp32_math():
-        ev[0].record()
-        offset = torch.zeros((scene.capacity, 2), device=DEVICE, requires_grad=True)
-        out = render(cam, scene, RenderConfig(bg=(0.0, 0.0, 0.0), depth_ratio=cfg.depth_ratio,
-                                              compute_distortion=cfg.lambda_dist != 0.0,
-                                              max_tiles_per_splat=cfg.raster_max_tiles_per_splat),
-                     center_offset=offset, backend=cfg.backend)
-        ev[1].record()
-        loss, aux = losses_from_render(scene, out, view, cfg, it, generator=trainer.generator)
-        ev[2].record()
-        trainer.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        ev[3].record()
-        adam_step(trainer.optimizer, cfg)
-        trainer.dstate = accumulate_stats(trainer.dstate, offset.grad, aux["radii"],
-                                          aux["visibility"])
-        ev[4].record()
-    torch.cuda.synchronize()
-    names = ("forward render", "losses", "backward", "Adam + stats")
-    return {k: a.elapsed_time(b) for k, a, b in zip(names, ev, ev[1:])}
+    rec = Recorder(True, torch.device(DEVICE))
+    with rec.traced():
+        for _ in range(n):
+            trainer.step(sync_metrics=False)
+    spans = summarize(rec).host_annotations
+    return {k[len("g4s:"):]: sum(v) / n for k, v in spans.items() if k.startswith("g4s:")}
 
 
 def b3_bound(qs, ks):
@@ -3950,14 +3926,15 @@ def main():
           f"distortion median {np.median(dist_steps):.3f} ms; with densify "
           + ", ".join(f"{t:.1f}" for t in dens_steps) + " ms")
     trainer.cfg = trainer.cfg.replace(lambda_dist=0.0)
-    splits = [timed_step(trainer) for _ in range(4)][1:]
-    split = {k: float(np.median([s_[k] for s_ in splits])) for k in splits[0]}
+    trainer.step(sync_metrics=False)
+    split = step_split(trainer)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.densify(trainer.iteration)
     torch.cuda.synchronize()
     split["densify"] = (time.perf_counter() - t0) * 1e3
-    print("  step split ms (CUDA events, median of 3; densify: one call, host clock): "
+    print("  step split ms (the program's g4s: spans on the host clock, mean of 3 profiled "
+          "Trainer.step calls after one; densify: one call, host clock): "
           + " ".join(f"{k} {v:.3f}" for k, v in split.items()))
     with torch.no_grad():
         print(f"  training shape (the first step's scene, view 0): {b8.gauss_id.numel()} entries, "

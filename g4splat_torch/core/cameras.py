@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from g4splat_torch.device import DeviceLike, resolve_device
+from g4splat_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -56,8 +57,9 @@ class Camera:
         t = self.w2c[..., :3, 3]
         Rt = R.transpose(-1, -2)
         top = torch.cat([Rt, -(Rt @ t[..., None])], dim=-1)
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                              device=top.device).expand(top.shape[:-2] + (1, 4))
+        with annotate("g4s:sync.c2w"):
+            bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                                  device=top.device).expand(top.shape[:-2] + (1, 4))
         return torch.cat([top, bottom], dim=-2)
 
     @property
@@ -118,14 +120,15 @@ class Camera:
     def ndc2pix(self) -> torch.Tensor:
         """(3, 4) homogeneous NDC→pixel map (reference forward.cu:106-110)."""
         W, H = float(self.width), float(self.height)
-        return torch.tensor(
-            [
-                [W / 2.0, 0.0, 0.0, (W - 1.0) / 2.0],
-                [0.0, H / 2.0, 0.0, (H - 1.0) / 2.0],
-                [0.0, 0.0, 0.0, 1.0],
-            ],
-            dtype=torch.float32, device=self.device,
-        )
+        with annotate("g4s:sync.ndc2pix"):
+            return torch.tensor(
+                [
+                    [W / 2.0, 0.0, 0.0, (W - 1.0) / 2.0],
+                    [0.0, H / 2.0, 0.0, (H - 1.0) / 2.0],
+                    [0.0, 0.0, 0.0, 1.0],
+                ],
+                dtype=torch.float32, device=self.device,
+            )
 
     @property
     def world2pix(self) -> torch.Tensor:

@@ -24,6 +24,7 @@ from g4splat_torch.core.cameras import Camera
 from g4splat_torch.core.geometry import depth_to_normal
 from g4splat_torch.models.gaussians import GaussianScene
 from g4splat_torch.ops.rasterize_common import Preprocessed, RenderConfig, preprocess
+from g4splat_torch.utils.profiling import annotate
 
 
 def render(
@@ -47,19 +48,21 @@ def render(
     H, W = camera.height, camera.width
     dev = scene.device
 
-    prep = preprocess(
-        camera,
-        xyz=scene.xyz,
-        scaling=scene.scaling(),
-        rotation_raw=scene.rotation_raw,
-        opacity=scene.opacity(),
-        features=scene.features(),
-        sh_degree=scene.active_sh_degree,
-        colors=override_color,
-        config=config,
-        center_offset=center_offset,
-    )
-    bg = torch.as_tensor(config.bg, dtype=torch.float32).to(dev)
+    with annotate("g4s:render.preprocess"):
+        prep = preprocess(
+            camera,
+            xyz=scene.xyz,
+            scaling=scene.scaling(),
+            rotation_raw=scene.rotation_raw,
+            opacity=scene.opacity(),
+            features=scene.features(),
+            sh_degree=scene.active_sh_degree,
+            colors=override_color,
+            config=config,
+            center_offset=center_offset,
+        )
+    with annotate("g4s:sync.bg"):
+        bg = torch.as_tensor(config.bg, dtype=torch.float32).to(dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
 
     if backend == "dense":

@@ -27,6 +27,7 @@ import torch
 from g4splat_torch.core import sh as sh_lib
 from g4splat_torch.core.cameras import Camera
 from g4splat_torch.core.transforms import normalize, quat_to_rotmat
+from g4splat_torch.utils.profiling import annotate
 
 # Reference constants (auxiliary.h:18,37-39; config.h:15-17)
 TILE = 16
@@ -110,7 +111,8 @@ def conic_center(T: torch.Tensor):
     f (..., 3), ok (...)): f scales the conic, ok is False where the conic is
     degenerate (and f unscaled there)."""
     Tu, Tv, Tw = T[..., 0, :], T[..., 1, :], T[..., 2, :]
-    tmp = T.new_tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0])
+    with annotate("g4s:sync.conic"):
+        tmp = T.new_tensor([CUTOFF * CUTOFF, CUTOFF * CUTOFF, -1.0])
     dist = torch.sum(Tw * Tw * tmp, dim=-1)
     ok = torch.abs(dist) > 1e-12
     f = tmp / torch.where(ok, dist, 1.0)[..., None]

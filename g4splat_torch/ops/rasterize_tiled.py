@@ -32,6 +32,7 @@ from g4splat_torch.ops.rasterize_common import (
     tile_rect,
 )
 from g4splat_torch.ops.rasterize_dense import composite
+from g4splat_torch.utils.profiling import annotate, annotated, count
 
 MAX_TILES_PER_SPLAT = 16   # splats covering more tiles are truncated
 TILE_K = 1024              # `tiled` backend: max splats composited per tile
@@ -105,7 +106,8 @@ def _ellipse_keep(prep: Preprocessed, tx: torch.Tensor, ty: torch.Tensor) -> tor
         return (Hxx * x * x + 2.0 * (Hxy * x * y + Gx * x + Gy * y)
                 + Hyy * y * y + K)
 
-    inf = torch.tensor(torch.inf, device=T.device)
+    with annotate("g4s:sync.ellipse"):
+        inf = torch.tensor(torch.inf, device=T.device)
     qmin = torch.minimum(torch.minimum(q(x0, y0), q(x0, y1)),
                          torch.minimum(q(x1, y0), q(x1, y1)))
     # Edge stationary points (when the 1D leading coefficient is ≤ 0 the edge
@@ -135,6 +137,7 @@ def _ellipse_keep(prep: Preprocessed, tx: torch.Tensor, ty: torch.Tensor) -> tor
     return (keep3d | keep2d) & (prep.opacity >= ALPHA_EPS)[:, None]
 
 
+@annotated("g4s:render.binning")
 def bin_splats(
     prep: Preprocessed,
     width: int,
@@ -175,7 +178,10 @@ def bin_splats(
     # bit pattern orders like the float itself.
     dbits = prep.depth.contiguous().view(torch.int32).to(torch.int64)
     keys = (tid.to(torch.int64) << 32) | dbits[:, None]
-    flat = torch.nonzero(slot_valid.reshape(-1)).squeeze(1)   # row-major (splat, slot)
+    with annotate("g4s:sync.binning"):
+        flat = torch.nonzero(slot_valid.reshape(-1)).squeeze(1)   # row-major (splat, slot)
+    count("render.binned_entries", flat.numel())
+    count("render.binnings")
     keys_sorted, perm = torch.sort(keys.reshape(-1)[flat], stable=True)
     pid = flat[perm]
     gid_sorted = (pid // cap).to(torch.int32)

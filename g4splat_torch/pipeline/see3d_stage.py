@@ -20,6 +20,7 @@ import torch
 from g4splat_torch.core.resize import resize_bilinear
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
 from g4splat_torch.priors.see3d import Attention, Noise, See3DPipeline
+from g4splat_torch.utils.profiling import annotated
 
 if TYPE_CHECKING:
     from g4splat_torch.pipeline.orchestrator import Priors
@@ -75,6 +76,7 @@ def _context(priors: Priors, ref0: torch.Tensor) -> torch.Tensor:
     return torch.zeros((1, 4, priors.see3d.unet.cfg.context_dim), device=dev)
 
 
+@annotated("g4s:see3d.call")
 @torch.no_grad()
 @fp32_math()
 def run_see3d_inpaint(priors: Priors, images, input_view_num: int, warps: Sequence,

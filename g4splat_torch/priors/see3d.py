@@ -34,6 +34,7 @@ from torch import nn
 
 from g4splat_torch.ops.attention import memory_efficient_attention
 from g4splat_torch.parallel.mesh import Replicas, run_spmd
+from g4splat_torch.utils.profiling import annotated
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 LN_EPS = 1e-6
@@ -312,6 +313,7 @@ class MultiViewUNet(nn.Module):
                 h = layer(h)
         return h
 
+    @annotated("g4s:see3d.unet")
     def forward(self, x, t, context, num_frames: int, camera=None,
                 attention: Optional[Attention] = None, shard=None):
         """`shard`: this call's part of a frame batch split over a mesh

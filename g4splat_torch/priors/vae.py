@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from g4splat_torch.utils.profiling import annotated
+
 SD_SCALE = 0.18215
 
 
@@ -167,12 +169,14 @@ class AutoencoderKL(nn.Module):
         """Pixels per latent along each axis."""
         return 2 ** (len(self.ch_mult) - 1)
 
+    @annotated("g4s:see3d.vae")
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) in [-1, 1] → the scaled latent mean (B, z, H/f, W/f),
         as the See3D stage encodes (deterministically)."""
         mean, _ = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
         return mean * SD_SCALE
 
+    @annotated("g4s:see3d.vae")
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z / SD_SCALE))
 

@@ -31,6 +31,7 @@ import torch
 
 from g4splat_torch.core.transforms import quat_to_rotmat
 from g4splat_torch.models.gaussians import GaussianScene
+from g4splat_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -171,7 +172,8 @@ def densify_and_prune(
 def compact_and_grow(scene: GaussianScene, new_capacity: int) -> GaussianScene:
     """Pack alive splats to the front of a larger buffer (host-side in the
     JAX package; here a gather on the scene's device)."""
-    idx = torch.nonzero(scene.alive).squeeze(1)
+    with annotate("g4s:sync.compact"):
+        idx = torch.nonzero(scene.alive).squeeze(1)
     n = idx.numel()
     if new_capacity < n:
         raise ValueError(f"new capacity {new_capacity} < {n} alive splats")

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from g4splat_torch.utils.profiling import annotate
+
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
     """|x| with JAX's subgradient at 0 (+1, where torch.abs gives 0), so the
@@ -184,7 +186,9 @@ def depth_order_loss(
     cols = torch.arange(W, device=depth.device)[None, :]
     if sample == "global":
         losses = []
-        for dy, dx in shifts.tolist():
+        with annotate("g4s:sync.depth_order"):
+            pairs = shifts.tolist()
+        for dy, dx in pairs:
             sd = torch.roll(depth, (-dy, -dx), dims=(0, 1))
             spd = torch.roll(prior_depth, (-dy, -dx), dims=(0, 1))
             valid = ((rows + dy >= 0) & (rows + dy < H)

@@ -47,6 +47,7 @@ from g4splat_torch.train.densify import (
     compact_and_grow,
     densify_and_prune,
 )
+from g4splat_torch.utils.profiling import annotate, annotated
 
 PARAM_FIELDS = ("xyz", "f_dc", "f_rest", "opacity_raw", "scaling_raw", "rotation_raw")
 
@@ -184,7 +185,8 @@ def compute_losses(
         center_offset=center_offset,
         backend=cfg.backend,
     )
-    return losses_from_render(scene, out, view, cfg, iteration, shifts, generator)
+    with annotate("g4s:train.losses"):
+        return losses_from_render(scene, out, view, cfg, iteration, shifts, generator)
 
 
 def losses_from_render(
@@ -274,12 +276,13 @@ def train_step(
     offset = torch.zeros((scene.capacity, 2), device=scene.device, requires_grad=True)
     loss, aux = compute_losses(scene, camera, view, cfg, iteration, offset, shifts,
                                generator)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    adam_step(optimizer, cfg)
-
-    if cfg.densify_from_iter <= iteration < cfg.densify_until_iter:
-        dstate = accumulate_stats(dstate, offset.grad, aux["radii"], aux["visibility"])
+    with annotate("g4s:train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with annotate("g4s:train.adam"):
+        adam_step(optimizer, cfg)
+        if cfg.densify_from_iter <= iteration < cfg.densify_until_iter:
+            dstate = accumulate_stats(dstate, offset.grad, aux["radii"], aux["visibility"])
     metrics = {
         "loss": loss.detach(),
         "l1": aux["l1"].detach(),
@@ -495,7 +498,8 @@ class Trainer:
         old = self.scene
         if self.slab_mode:
             new_capacity += (-new_capacity) % self.mesh.shape["model"]
-        alive_idx = torch.nonzero(old.alive).squeeze(1)
+        with annotate("g4s:sync.grow"):
+            alive_idx = torch.nonzero(old.alive).squeeze(1)
         n = alive_idx.numel()
         print(f"[trainer] densify overflow: growing capacity {old.capacity} -> "
               f"{new_capacity} ({n} alive)", flush=True)
@@ -525,6 +529,7 @@ class Trainer:
         if self.cfg.use_mip_filter:
             self.scene = self._mip(self.scene)
 
+    @annotated("g4s:train.step")
     def step(self, sync_metrics: bool = True) -> Dict[str, Any]:
         self.iteration += 1
         it = self.iteration
@@ -559,9 +564,11 @@ class Trainer:
                     zero_moments_at(self.optimizer, every, groups=("opacity_raw",))
 
         if sync_metrics:
-            return {k: float(v) for k, v in metrics.items()}
+            with annotate("g4s:sync.metrics"):
+                return {k: float(v) for k, v in metrics.items()}
         return metrics
 
+    @annotated("g4s:train.densify")
     def densify(self, it: int):
         """Densify/prune at iteration `it`; grow the buffer when candidates
         were dropped, else refresh the mip filter."""
@@ -577,7 +584,9 @@ class Trainer:
             self._refresh_partitions()
         # Overflow → grow the static buffer (capacity doubles, bounded by
         # cfg.max_capacity; one host sync per densify interval).
-        if int(report.n_dropped) > 0 and self.scene.capacity < cfg.max_capacity:
+        with annotate("g4s:sync.densify"):
+            dropped = int(report.n_dropped) > 0
+        if dropped and self.scene.capacity < cfg.max_capacity:
             self._grow_capacity(min(cfg.max_capacity,
                                     max(2 * self.scene.capacity, self.scene.capacity + 4096)))
         elif cfg.use_mip_filter:

@@ -1,32 +1,48 @@
-"""Tracing, stage timing and metric logging (counterpart of
-`g4splat_tpu.utils.profiling`).
+"""Tracing: spans and counters of the port's layers (counterpart of
+`g4splat_tpu.utils.profiling`'s `trace` and `annotate`).
 
 - `trace(logdir)`: `torch.profiler` over the host and, where a card is
   present, the card (CUPTI); on exit one Chrome trace, `trace_*.json`, is
   written into `logdir` (chrome://tracing or ui.perfetto.dev read it). The
   profiler is yielded, so `key_averages()` can be read inside the block.
-- `annotate(name)`: a named host range in the trace
-  (`torch.profiler.record_function`).
-- `StageTimer`: accumulated host-clock seconds per stage name; with
-  `block_on` (a tensor or a device) the card is synchronized before the
-  clock is read, so the time includes the queued device work.
-- `MetricsLogger`: scalars kept in memory and appended to
-  `logdir/metrics.jsonl`, line for line as the JAX package writes them, and
-  to TensorBoard when `torch.utils.tensorboard` imports (the reference's
-  tqdm EMA + TensorBoard-if-importable logging,
-  train_with_refine_depth.py:49-53,667-725).
+  The counters are cleared when it starts.
+- `annotate(name)`: a named span (`torch.profiler.record_function`),
+  entered only while a torch profiler is recording; otherwise one shared
+  `contextlib.nullcontext()`, so a run that is not traced pays a flag check
+  per span and nothing else. `annotated(name)` is its decorator form, a span
+  over a function's whole body. The spans are ranges of the profiler, so kineto
+  puts them on the clock of the device trace: in `trace`'s Chrome trace each
+  idle gap of the card sits under a named span of the port. On the device's
+  timeline kineto gives each kernel to the innermost range open at its launch
+  only, so a span meant to carry a layer's device time opens inside the
+  layer's own function (`MultiViewUNet.forward`, `AutoencoderKL.encode`),
+  beneath any hook or wrapper that opens a range around it. The port's spans
+  are named `g4s:<layer>.<stage>`; `g4s:sync.<site>` marks a call that holds
+  the host until the card's queue drains (a read from the card, or a copy to
+  it from pageable memory).
+- `count(name, n)`: adds `n` to a named integer counter, under the same
+  condition as `annotate`; `counters()` returns a copy of them and
+  `reset_counters()` clears them. They accumulate over every stretch that a
+  profiler records, so read them as ratios of counters kept at one site.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import functools
 import os
 import time
-from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict
 
 import torch
+
+_OFF = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = {}
+
+
+def _recording() -> bool:
+    """Whether a torch profiler is recording in this process."""
+    return torch._C._autograd._profiler_enabled()
 
 
 @contextlib.contextmanager
@@ -38,6 +54,7 @@ def trace(logdir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    reset_counters()
     with profile(activities=activities) as prof:
         yield prof
     name = f"trace_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}.json"
@@ -45,74 +62,32 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """A named host range, visible in `trace`'s output."""
-    return torch.profiler.record_function(name)
+    """A named span, visible in a profiler's trace while one records."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
-def _block(on) -> None:
-    dev = on.device if isinstance(on, torch.Tensor) else torch.device(on)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def annotated(name: str):
+    """A decorator: the function's every call runs inside `annotate(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
-class StageTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            _block(block_on)
-        dt = time.perf_counter() - t0
-        self.totals[name] += dt
-        self.counts[name] += 1
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {"total_s": self.totals[k], "count": self.counts[k],
-                "mean_ms": 1000 * self.totals[k] / max(self.counts[k], 1)}
-            for k in self.totals
-        }
-
-    def report(self) -> str:
-        lines = []
-        for k, v in sorted(self.summary().items(), key=lambda kv: -kv[1]["total_s"]):
-            lines.append(f"{k:32s} {v['total_s']:8.2f}s  ×{v['count']:<6d} "
-                         f"{v['mean_ms']:8.1f}ms/it")
-        return "\n".join(lines)
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` while a profiler records."""
+    if _recording():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
-class MetricsLogger:
-    def __init__(self, logdir: Optional[str] = None, use_tensorboard: bool = True):
-        self.history: List[dict] = []
-        self._jsonl = None
-        self._tb = None
-        if logdir:
-            os.makedirs(logdir, exist_ok=True)
-            self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
-            if use_tensorboard:
-                try:
-                    from torch.utils.tensorboard import SummaryWriter
-                except ImportError:
-                    SummaryWriter = None
-                if SummaryWriter is not None:
-                    self._tb = SummaryWriter(logdir)
+def counters() -> Dict[str, int]:
+    return dict(_COUNTERS)
 
-    def log(self, step: int, metrics: Dict[str, float]):
-        rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
-        self.history.append(rec)
-        if self._jsonl:
-            self._jsonl.write(json.dumps(rec) + "\n")
-            self._jsonl.flush()
-        if self._tb:
-            for k, v in metrics.items():
-                self._tb.add_scalar(k, float(v), step)
 
-    def close(self):
-        if self._jsonl:
-            self._jsonl.close()
-        if self._tb:
-            self._tb.close()
+def reset_counters() -> None:
+    _COUNTERS.clear()

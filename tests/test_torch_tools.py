@@ -1,9 +1,8 @@
 """The port's tools and small helpers against the JAX package's, on the CPU.
 
-- `utils.profiling`: `StageTimer` and `MetricsLogger` as tests/test_utils.py
-  holds the JAX ones (counts, the report, JSONL lines), the JSONL file byte
-  for byte as the JAX logger writes it for the same calls; `trace` writes a
-  Chrome trace that names an `annotate` range and the profiled ops.
+- `utils.profiling`: `trace` writes a Chrome trace that names an `annotate`
+  range and the profiled ops (the spans and counters themselves:
+  tests/test_torch_tracing.py).
 - `utils.config.save_run_config` writes the JAX package's `cfg_args.json`
   bytes for the same groups (a dataclass, a dict, a value JSON cannot hold),
   and `load_run_config` reads it back.
@@ -48,7 +47,6 @@ from g4splat_tpu.core import geometry as JG
 from g4splat_tpu.core import transforms as JT
 from g4splat_tpu.models.gaussians import GaussianScene as JScene
 from g4splat_tpu.utils import config as JU
-from g4splat_tpu.utils import profiling as JP
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -64,37 +62,6 @@ def _one_torch_thread():
 
 
 # ----------------------------------------------------------------- profiling
-
-def test_stage_timer():
-    t = TP.StageTimer()
-    with t.time("a"):
-        pass
-    with t.time("a", block_on=torch.zeros(2)):
-        pass
-    with t.time("b", block_on="cpu"):
-        pass
-    j = JP.StageTimer()
-    with j.time("a"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["b"]["count"] == 1
-    assert set(s["a"]) == set(j.summary()["a"])
-    assert "a" in t.report() and "b" in t.report()
-
-
-def test_metrics_logger_lines_match_jax(tmp_path):
-    calls = [(1, {"loss": 0.5}), (2, {"loss": torch.tensor(0.25), "psnr": np.float32(21.5)})]
-    for mod, d in ((TP, "port"), (JP, "jax")):
-        m = mod.MetricsLogger(str(tmp_path / d), use_tensorboard=False)
-        for step, metrics in calls:
-            m.log(step, metrics)
-        m.close()
-        assert [r["step"] for r in m.history] == [1, 2]
-    port = (tmp_path / "port" / "metrics.jsonl").read_bytes()
-    assert port == (tmp_path / "jax" / "metrics.jsonl").read_bytes()
-    lines = port.decode().strip().split("\n")
-    assert len(lines) == 2 and json.loads(lines[1])["loss"] == 0.25
-
 
 def test_trace_writes_chrome_trace(tmp_path):
     logdir = str(tmp_path / "trace")
