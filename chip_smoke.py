@@ -22,15 +22,20 @@ Phases (any failure exits non-zero and prints no result line):
      bitwise equal to B1 on the gathered rows, no pair with alpha >= 1/255
      that B1 walks and no contributing pair of B2 outside its entry's reach
      box, and (deep-overlap too) B2's work list vs its plain version; B2's
-     time;
+     time; the binning kernel chain vs the plain binning, bit for bit in
+     every field the kernels read, at the default setting, cap 256 and
+     without the ellipse test;
   4. the render main path: a 200k-splat scene at SH degree 3, written to PLY
      and read back, rendered by render(backend="cuda") from 8 orbit cameras
      at 768x576 with need_aux=False and again with compute_distortion=False;
      B1's launch count must rise by exactly 16; on each orbit frame B1 vs
-     its plain version in all three modes and B1's reach boxes;
+     its plain version in all three modes, B1's reach boxes, and the
+     binning kernel chain vs the plain binning (bit for bit);
   5. one frame of a 2.4M-splat scene at 512x384: B1 in all three modes and
      B2 in both, against their plain versions; the gauss_id bitwise check;
      no pair outside its reach box (B1, and B2 in either mode); B2's time;
+     the binning kernel chain vs the plain binning (bit for bit, with and
+     without the ellipse test) and both binnings' times;
   6. render timings: B1, the whole render() and its stages (preprocess,
      binning, the splat table, B1, post), the plain version, B1's bound (on
      the pairs its reach boxes leave, beside the bound on every pair
@@ -45,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
      densify window (densify at 10, 20, 30), then 5 with lambda_dist > 0;
      finite losses, loss down and PSNR up over the view cycle, and exactly
      one B1 and one B2 launch per step; no pair outside its reach box (B1
-     and B2) on the trained scene;
+     and B2) on the trained scene; the binning kernel chain vs the plain
+     binning on the first step's scene (dead slots included);
   9. training timings: the median step and its split by the program's
      spans (step, preprocess, binning, losses, backward, Adam, the blocking
      calls; densify); at the training shape (the first step's scene): B1's
@@ -499,6 +505,57 @@ def kernel_inputs(cam, scene):
                       scene.features(), scene.active_sh_degree, config=RenderConfig())
     b = bin_splats(prep, cam.width, cam.height)
     return b, splat_table(prep)
+
+
+# The binning fields the kernels read, held bit for bit against the plain
+# binning (rasterize_tiled.bin_splats_plain) on the same card tensors.
+BINNING_FIELDS = ("gauss_id", "tile_id", "tile_start", "tile_count", "n_dropped")
+# Binning settings checked beside the default (cap 16, ellipse test on).
+BIN_VARIANTS = ({}, {"max_tiles_per_splat": 256}, {"ellipse_prune": False})
+
+
+def binning_vs_plain(tag, cam, scene, variants=BIN_VARIANTS, timed=False):
+    """The binning kernel chain (bin_splats on card tensors) against the
+    plain binning on the same preprocessed splats, in each setting: every
+    field the kernels read bit-identical. With `timed`, prints both
+    binnings' CUDA-event ms."""
+    import torch
+
+    from g4splat_torch.ops.rasterize_common import RenderConfig, preprocess
+    from g4splat_torch.ops.rasterize_tiled import BINNING, bin_splats, bin_splats_plain
+
+    prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw, scene.opacity(),
+                      scene.features(), scene.active_sh_degree, config=RenderConfig())
+    w, h = cam.width, cam.height
+    for kw in variants:
+        before = BINNING.launches
+        got = bin_splats(prep, w, h, **kw)
+        ref = bin_splats_plain(prep, w, h, **kw)
+        torch.cuda.synchronize()
+        bad = [k for k in BINNING_FIELDS if not torch.equal(getattr(got, k), getattr(ref, k))]
+        setting = ", ".join(f"{k} {v}" for k, v in kw.items()) or "default"
+        check(not bad and BINNING.launches == before + 1,
+              f"{tag} [{setting}]: binning kernel == plain bit for bit "
+              f"({got.gauss_id.numel()} entries, n_dropped {int(got.n_dropped)})"
+              + (f"; differs in {', '.join(bad)}" if bad else ""))
+    if timed:
+        P, E = prep.depth.shape[0], bin_splats(prep, w, h).gauss_id.numel()
+        k_ms = cuda_ms(lambda: bin_splats(prep, w, h))
+        p_ms = cuda_ms(lambda: bin_splats_plain(prep, w, h))
+        print(f"  {tag}: binning kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (CUDA events, "
+              f"{P} slots, {int(prep.valid.sum())} valid, {E} entries); bound "
+              f"{binning_bound(P, E):.4f} ms (bytes)")
+
+
+def binning_bound(P, E):
+    """Least ms for the binning chain's bytes at HBM_BYTES_PER_S: each splat's
+    61 bytes (T 36, centre 8, radius, opacity, tau, depth 4 each, valid 1)
+    read by both passes; each entry's int64 key and int32 id written; the
+    stable radix sort's 8 passes over 64-bit keys, each reading and writing
+    the keys and their int64 indices; the ranges pass reading the sorted key,
+    index and id and writing gauss_id and tile_id."""
+    nbytes = 2 * P * 61 + E * 12 + 8 * 2 * E * 16 + E * (8 + 8 + 4 + 4 + 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def compare_maps(tag, got, ref, quiet=False):
@@ -3718,6 +3775,7 @@ def main():
             b, table = kernel_inputs(cam3, scene)
             print(f"  {tag}: {b.gauss_id.numel()} entries, densest tile "
                   f"{int(b.tile_count.max())}")
+            binning_vs_plain(tag, cam3, scene)
             seen, ref = kernel_vs_plain(tag, b, table, w3, h3)
             gathered_bitwise(tag, b, table, w3, h3)
             fwd_activity(tag, b, table, ref, w3, h3)
@@ -3774,6 +3832,7 @@ def main():
         # frame; frame 0 is the one timed.
         for i, cam in enumerate(cams):
             bi, ti = kernel_inputs(cam, scene)
+            binning_vs_plain(f"main frame {i}", cam, scene, variants=BIN_VARIANTS[:1])
             _, ref = kernel_vs_plain(f"main frame {i}", bi, ti, W, H, quiet=i > 0)
             act = fwd_activity(f"main frame {i}", bi, ti, ref, W, H)
             if i == 0:
@@ -3789,6 +3848,9 @@ def main():
     with torch.no_grad():
         b5, t5 = kernel_inputs(cam5, big)
         print(f"  {b5.gauss_id.numel()} entries, densest tile {int(b5.tile_count.max())}")
+        # No cap-256 plain binning here: its (P, 256) passes take tens of GB.
+        binning_vs_plain("production", cam5, big, variants=(BIN_VARIANTS[0], BIN_VARIANTS[2]),
+                         timed=True)
         _, ref5 = kernel_vs_plain("production", b5, t5, w5, h5)
         gathered_bitwise("production", b5, t5, w5, h5)
         act5 = fwd_activity("production", b5, t5, ref5, w5, h5)
@@ -3849,6 +3911,8 @@ def main():
     # the gated comparison reads this one.
     with torch.no_grad():
         b8, t8 = kernel_inputs(camera_at(cams8, 0), trainer.scene)
+        binning_vs_plain("training first step", camera_at(cams8, 0), trainer.scene,
+                         variants=(BIN_VARIANTS[0], BIN_VARIANTS[2]))
     torch.cuda.synchronize()
     rasterize_cuda.RASTERIZE_FWD.launches = 0
     rasterize_cuda_bwd.RASTERIZE_BWD.launches = 0

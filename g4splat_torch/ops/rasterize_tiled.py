@@ -1,4 +1,4 @@
-"""Tile binning and tile-binned differentiable compositing in plain PyTorch
+"""Tile binning, and tile-binned differentiable compositing in plain PyTorch
 (counterpart of `g4splat_tpu.ops.rasterize_tiled`).
 
 Binning follows the reference's pipeline (rasterizer_impl.cu:198-342): each
@@ -8,6 +8,10 @@ Unlike the JAX package, which packs 31-bit keys with depth quantized below the
 tile bits into a static buffer, the port sorts int64 keys on EXACT depth (tile
 id in the high 32 bits, the float bits of the positive depth below; ties break
 by splat index) into an exactly sized entry list, so no entry ever overflows.
+`bin_splats` dispatches on the tensors' device: on CUDA tensors it runs the
+kernel chain of `csrc/binning.cu` (one thread per splat, the candidate test
+in registers), on CPU tensors `bin_splats_plain`, its plain version over the
+(P, cap) candidate slots. Both give the same binning, bit for bit.
 
 The tiled compositing (`_render_tiles`) is autograd-differentiable and keeps
 only the front-most `tile_k` entries of each tile; the CUDA kernel in
@@ -16,11 +20,13 @@ only the front-most `tile_k` entries of each tile; the CUDA kernel in
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from g4splat_torch.ops.cuda_build import KernelInfo
 from g4splat_torch.ops.rasterize_common import (
     ALPHA_EPS,
     FAR_N,
@@ -37,16 +43,25 @@ from g4splat_torch.utils.profiling import annotate, annotated, count
 MAX_TILES_PER_SPLAT = 16   # splats covering more tiles are truncated
 TILE_K = 1024              # `tiled` backend: max splats composited per tile
 
+BINNING = KernelInfo(
+    name="binning",
+    source="g4splat_torch/csrc/binning.cu",
+    replaces="g4splat_tpu/ops/rasterize_tiled.py:242",
+)
+
 
 class Binning(NamedTuple):
     gauss_id: torch.Tensor     # (E,) int32 splat of each entry, sorted by (tile, depth)
     tile_id: torch.Tensor      # (E,) int32 tile of each entry
-    slot_id: torch.Tensor      # (E,) int32 candidate slot; (gauss_id, slot_id) is unique
     tile_start: torch.Tensor   # (n_tiles,) int32
     tile_count: torch.Tensor   # (n_tiles,) int32
-    counts_valid: torch.Tensor  # (P,) int32 post-prune candidate count per splat
     n_dropped: torch.Tensor    # () int32 — entries lost to the per-splat cap
     n_overflow: torch.Tensor   # () int32 — always 0 (the entry list is exact)
+
+
+def _tau(opacity: torch.Tensor) -> torch.Tensor:
+    """The ellipse test's threshold on rho, 2·ln(opacity/ALPHA_EPS) + 0.05."""
+    return 2.0 * torch.log(torch.clamp(opacity, min=1e-12) / ALPHA_EPS) + 0.05
 
 
 def _ellipse_keep(prep: Preprocessed, tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
@@ -87,8 +102,7 @@ def _ellipse_keep(prep: Preprocessed, tx: torch.Tensor, ty: torch.Tensor) -> tor
     A1, B1, C1 = A1 / m, B1 / m, C1 / m
     A2, B2, C2 = A2 / m, B2 / m, C2 / m
 
-    opa = torch.clamp(prep.opacity, min=1e-12)
-    t_ = (2.0 * torch.log(opa / ALPHA_EPS) + 0.05)[:, None]
+    t_ = _tau(prep.opacity)[:, None]
 
     Hxx = (A0 * A0 + A1 * A1)[:, None] - t_ * (A2 * A2)[:, None]
     Hxy = (A0 * B0 + A1 * B1)[:, None] - t_ * (A2 * B2)[:, None]
@@ -150,7 +164,24 @@ def bin_splats(
     Candidate slots are the splat's rect tiles in row-major order
     (tx = rmin_x + slot % rw, ty = rmin_y + slot // rw), cut at
     `max_tiles_per_splat`; the cut slots are counted in `n_dropped`.
+
+    On CUDA tensors the kernel chain of `csrc/binning.cu` runs; on CPU tensors
+    `bin_splats_plain`. Both give the same binning, bit for bit.
     """
+    if prep.depth.is_cuda:
+        return _bin_splats_cuda(prep, width, height, max_tiles_per_splat, ellipse_prune)
+    return bin_splats_plain(prep, width, height, max_tiles_per_splat, ellipse_prune)
+
+
+def bin_splats_plain(
+    prep: Preprocessed,
+    width: int,
+    height: int,
+    max_tiles_per_splat: int = MAX_TILES_PER_SPLAT,
+    ellipse_prune: bool = True,
+) -> Binning:
+    """`bin_splats` in plain PyTorch over the (P, cap) candidate slots, on any
+    device: the version the kernel chain is held to."""
     prep = Preprocessed(**{k: v.detach() for k, v in prep.__dict__.items()})
     P = prep.depth.shape[0]
     dev = prep.depth.device
@@ -183,9 +214,7 @@ def bin_splats(
     count("render.binned_entries", flat.numel())
     count("render.binnings")
     keys_sorted, perm = torch.sort(keys.reshape(-1)[flat], stable=True)
-    pid = flat[perm]
-    gid_sorted = (pid // cap).to(torch.int32)
-    slot_sorted = (pid % cap).to(torch.int32)
+    gid_sorted = (flat[perm] // cap).to(torch.int32)
     tile_sorted = (keys_sorted >> 32).to(torch.int32)
 
     tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
@@ -194,13 +223,92 @@ def bin_splats(
     return Binning(
         gauss_id=gid_sorted,
         tile_id=tile_sorted,
-        slot_id=slot_sorted,
         tile_start=tile_start,
         tile_count=tile_end - tile_start,
-        counts_valid=slot_valid.sum(dim=1, dtype=torch.int32),
         n_dropped=(counts - counts_cap).sum().to(torch.int32),
         n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+def _lib():
+    """The binning kernels' library, its ctypes signatures declared once."""
+    from g4splat_torch.ops.cuda_build import load
+
+    lib = load("binning")
+    if not getattr(lib, "_g4_bound", False):
+        splat_args = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        lib.g4_bin_count.argtypes = splat_args + [ctypes.c_void_p] * 3
+        lib.g4_bin_emit.argtypes = splat_args + [ctypes.c_void_p] * 4
+        lib.g4_bin_ranges.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                                      + [ctypes.c_void_p] * 5)
+        for fn in (lib.g4_bin_count, lib.g4_bin_emit, lib.g4_bin_ranges):
+            fn.restype = ctypes.c_int
+        lib._g4_bound = True
+    return lib
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"binning {what} launch failed: CUDA error {err}")
+
+
+def _bin_splats_cuda(prep: Preprocessed, width: int, height: int, cap: int,
+                     ellipse_prune: bool) -> Binning:
+    """The kernel chain: count, prefix sum, one read of the total, emit,
+    stable sort, ranges (csrc/binning.cu)."""
+    P = prep.depth.shape[0]
+    dev = prep.depth.device
+    gx = (width + TILE - 1) // TILE
+    gy = (height + TILE - 1) // TILE
+    n_tiles = gx * gy
+    for k in ("T", "center", "radius", "opacity", "depth"):
+        if getattr(prep, k).dtype != torch.float32:
+            raise ValueError(f"binning on the card takes float32 splats, got {k} "
+                             f"{getattr(prep, k).dtype}")
+    if prep.T.shape != (P, 3, 3):
+        raise ValueError(f"T must be (P, 3, 3), got {tuple(prep.T.shape)}")
+    if prep.valid.dtype != torch.bool:
+        raise ValueError(f"binning on the card takes a bool valid mask, got {prep.valid.dtype}")
+    # Tau by the plain version's own torch ops, so both tests compare with the
+    # same value (the kernel's logf need not round as torch's log does).
+    tau = _tau(prep.opacity.detach()) if ellipse_prune else prep.opacity   # else not read
+    # T and depth are read through their strides (preprocess leaves both
+    # strided); the rest as contiguous rows.
+    T, depth = prep.T, prep.depth
+    ins = [T] + [t.contiguous() for t in (prep.center, prep.radius, prep.opacity, tau)]
+    ins += [depth, prep.valid.contiguous()]
+    strides = (ctypes.c_int * 4)(*T.stride(), depth.stride(0))
+    splat_args = ([t.data_ptr() for t in ins] + [ctypes.addressof(strides)]
+                  + [P, gx, gy, cap, int(bool(ellipse_prune))])
+    counts = torch.empty(P, dtype=torch.int32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)    # n_dropped, n_overflow
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(lib.g4_bin_count(*splat_args, counts.data_ptr(), flags.data_ptr(), stream),
+               "count")
+        incl = torch.cumsum(counts, 0)                       # int64
+        with annotate("g4s:sync.binning"):
+            E = int(incl[-1]) if P else 0
+        keys = torch.empty(E, dtype=torch.int64, device=dev)
+        ids = torch.empty(E, dtype=torch.int32, device=dev)
+        _check(lib.g4_bin_emit(*splat_args, incl.data_ptr(), keys.data_ptr(), ids.data_ptr(),
+                               stream), "emit")
+        keys_sorted, perm = torch.sort(keys, stable=True)
+        gauss_id = torch.empty(E, dtype=torch.int32, device=dev)
+        tile_id = torch.empty(E, dtype=torch.int32, device=dev)
+        tile_start = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        tile_count = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        _check(lib.g4_bin_ranges(keys_sorted.data_ptr(), perm.data_ptr(), ids.data_ptr(), E,
+                                 n_tiles, gauss_id.data_ptr(), tile_id.data_ptr(),
+                                 tile_start.data_ptr(), tile_count.data_ptr(), stream),
+               "ranges")
+    BINNING.count_launch()
+    count("render.binned_entries", E)
+    count("render.binnings")
+    count("render.binnings_kernel")
+    return Binning(gauss_id=gauss_id, tile_id=tile_id, tile_start=tile_start,
+                   tile_count=tile_count, n_dropped=flags[0], n_overflow=flags[1])
 
 
 def assemble_tiles(flat: torch.Tensor, width: int, height: int) -> torch.Tensor:

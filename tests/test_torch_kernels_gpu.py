@@ -452,3 +452,86 @@ def test_mesh_extraction_runs_b1_on_the_card(cuda):
     assert rasterize_cuda.RASTERIZE_FWD.launches == before + 2 * (4 + 4 * 2)
     assert len(mesh.faces) > 100 and np.isfinite(mesh.vertices).all()
     assert (mesh.vertex_colors >= 0).all() and (mesh.vertex_colors <= 1).all()
+
+
+# ------------------------------------------------------------------ binning
+
+# (splats, seed, cube half-width, camera z, width, height): chip_smoke's
+# phase-3 check scenes (spread, deep overlap, the spread scene from close by,
+# whose large splats run past a 16-tile cap) and a frame whose sides are no
+# multiple of 16.
+BIN_SCENES = {
+    "spread": (8000, 1, 2.0, -5.5, 256, 192),
+    "deep-overlap": (8000, 3, 0.35, -5.5, 256, 192),
+    "near": (8000, 1, 2.0, -2.6, 256, 192),
+    "ragged": (8000, 1, 2.0, -3.0, 250, 190),
+}
+
+
+def bin_prep(scene, w, h, eye, target=(0, 0, 0), fx=220.0):
+    cam = lookat_camera(list(eye), list(target), [0, -1, 0], fx=fx, fy=fx, width=w, height=h,
+                        device=scene.xyz.device)
+    return preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw, scene.opacity(),
+                      scene.features(), 0, config=RenderConfig())
+
+
+def binning_equal(prep, w, h, **kw):
+    """The kernel chain against the plain binning on the same card tensors:
+    every field that is read, bit for bit. Returns the kernel's binning."""
+    from g4splat_torch.ops.rasterize_tiled import BINNING, bin_splats_plain
+
+    before = BINNING.launches
+    got = bin_splats(prep, w, h, **kw)
+    assert BINNING.launches == before + 1
+    ref = bin_splats_plain(prep, w, h, **kw)
+    torch.cuda.synchronize()
+    for k in ("gauss_id", "tile_id", "tile_start", "tile_count", "n_dropped"):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert a.dtype == b.dtype and a.device == b.device and torch.equal(a, b), k
+    assert int(got.n_overflow) == 0
+    return got, ref
+
+
+@pytest.mark.parametrize("prune", [True, False])
+@pytest.mark.parametrize("cap", [16, 256])
+@pytest.mark.parametrize("name", list(BIN_SCENES))
+def test_binning_kernel_matches_plain(cuda, name, cap, prune):
+    n, seed, spread, z, w, h = BIN_SCENES[name]
+    rng = np.random.RandomState(seed)
+    scene = GaussianScene.from_points(
+        rng.uniform(-spread, spread, (n, 3)), rng.rand(n, 3),
+        scales=np.exp(rng.uniform(-3.5, -2.0, n)), quats=rng.randn(n, 4),
+        initial_opacity=0.7, capacity=n + 1024, device=cuda)      # dead slots at the end
+    got, _ = binning_equal(bin_prep(scene, w, h, (0, 0, z)), w, h, max_tiles_per_splat=cap,
+                           ellipse_prune=prune)
+    assert got.gauss_id.numel() > 0 and int(got.tile_count.sum()) == got.gauss_id.numel()
+    if name == "near" and cap == 16:
+        assert int(got.n_dropped) > 0
+
+
+@pytest.mark.parametrize("prune", [True, False])
+def test_binning_kernel_matches_plain_at_the_training_shape(cuda, prune):
+    """chip_smoke's training scene: 1.2M live splats of the room shell in 2.4M
+    slots, at 512x384 from its first training camera."""
+    import chip_smoke
+
+    xyz, cols, scales, quats = chip_smoke.scene_arrays(1_200_000, 11)
+    scene = GaussianScene.from_points(xyz, cols, scales=scales, quats=quats,
+                                      capacity=2_400_000, initial_opacity=0.5, device=cuda)
+    prep = bin_prep(scene, 512, 384, (0, -0.8, -6.5), fx=400.0)
+    assert int(prep.valid.sum()) > 500_000
+    got, ref = binning_equal(prep, 512, 384, ellipse_prune=prune)
+    assert got.gauss_id.numel() > 1_000_000
+
+
+def test_binning_kernel_with_zero_entries(cuda):
+    """A frame that sees no splat (all behind the camera) and a scene of dead
+    slots: empty entry lists, every tile empty."""
+    rng = np.random.RandomState(2)
+    scene = GaussianScene.from_points(rng.uniform(-1, 1, (500, 3)), rng.rand(500, 3),
+                                      initial_opacity=0.7, device=cuda)
+    for prep in (bin_prep(scene, 100, 70, (0, 0, 5.5), target=(0, 0, 10)),
+                 bin_prep(GaussianScene.empty(64, device=cuda), 100, 70, (0, 0, -5.5))):
+        got, _ = binning_equal(prep, 100, 70)
+        assert got.gauss_id.numel() == 0 and not got.tile_count.any()
+        assert not got.tile_start.any()

@@ -311,6 +311,55 @@ def test_binned_entries_reads_the_counters():
     assert read(trace({}, {})) is None
 
 
+def test_binning_kernel_pct_reads_the_counters():
+    import json
+
+    read = harness.metric_reader(ROOT, "binning_kernel_pct.train")
+    profiling.reset_counters()
+    with torch.profiler.profile():
+        profiling.count("render.binnings", 4)
+    assert read(trace({}, {})) is None            # no kernel counter: a tree without it
+    with torch.profiler.profile():
+        profiling.count("render.binnings_kernel", 4)
+    assert read(trace({}, {})) == pytest.approx(100.0, rel=1e-12)
+    profiling.reset_counters()
+    assert read(trace({}, {})) is None
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    m = {m["name"]: m for m in bench["per_layer"]}["binning_kernel_pct.train"]
+    assert (m["source"], m["layer"], m["moves"], m["workloads"]) == (
+        "program_counter", "rasterizer ops", "train_steps_per_s", ["train_room"])
+
+
+def test_binning_on_cpu_tensors_takes_the_plain_path():
+    """On CPU tensors `bin_splats` runs `bin_splats_plain` (same binning,
+    exactly): it counts `render.binnings`, never `render.binnings_kernel`,
+    and launches no kernel."""
+    t = make_trainer()
+    s = t.scene
+    prep = preprocess(camera_at(t.cameras, 0), xyz=s.xyz, scaling=s.scaling(),
+                      rotation_raw=s.rotation_raw, opacity=s.opacity(),
+                      features=s.features(), sh_degree=s.active_sh_degree,
+                      config=RenderConfig())
+    launches = rasterize_tiled.BINNING.launches
+    profiling.reset_counters()
+    with torch.profiler.profile():
+        got = rasterize_tiled.bin_splats(prep, RES, RES)
+    c = profiling.counters()
+    assert c["render.binnings"] == 1 and "render.binnings_kernel" not in c
+    assert c["render.binned_entries"] == got.gauss_id.numel() > 0
+    assert rasterize_tiled.BINNING.launches == launches
+    ref = rasterize_tiled.bin_splats_plain(prep, RES, RES)
+    assert got._fields == ref._fields
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    profiling.reset_counters()
+
+
+def test_binning_carries_only_the_fields_that_are_read():
+    assert rasterize_tiled.Binning._fields == (
+        "gauss_id", "tile_id", "tile_start", "tile_count", "n_dropped", "n_overflow")
+
+
 def test_every_new_metric_is_in_the_benchmark():
     import json
 
