@@ -40,6 +40,15 @@ view stack in slabs of two.
 `convert_torch_sam` is the JAX package's converter (official state dict →
 the zoo's params tree), numpy only; `g4splat_torch.convert.sam_state_dict`
 inverts it.
+
+Spans and counters of the image encoder (`utils.profiling`, live only while
+a profiler records): `g4s:sam.encode` around each encoder call,
+`g4s:sam.attn.window` and `g4s:sam.attn.global` around the attention core
+of a windowed or a global block (logits, both rel-pos terms, softmax and the
+product with v; not `qkv` or `proj`), `g4s:sam.mlp` around each block's MLP;
+the counters `sam.images` (images through the encoder) and
+`sam.attn_logit_bytes` (bytes of the N × N logit buffers the attention core
+allocates, from their shapes).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from g4splat_torch.core.resize import resize_bilinear
 from g4splat_torch.device import DeviceLike, fp32_math, resolve_device
 from g4splat_torch.parallel.mesh import Replicas, map_over_data
 from g4splat_torch.priors.vit import gelu_exact
+from g4splat_torch.utils.profiling import annotate, annotated, count
 
 LN_EPS = 1e-6       # every LayerNorm, the two-way blocks' too (official: 1e-5 there)
 DOWNSCALING = "prompt_encoder.mask_downscaling."
@@ -132,9 +142,10 @@ def _rel_pos_bias(q_hw: Tuple[int, int], rel_h, rel_w, q, heads):
 
 
 class EncoderAttention(nn.Module):
-    def __init__(self, dim: int, heads: int, grid: Tuple[int, int]):
+    def __init__(self, dim: int, heads: int, grid: Tuple[int, int], span: str):
+        """span: the name of the attention core's span."""
         super().__init__()
-        self.heads, self.grid = heads, grid
+        self.heads, self.grid, self.span = heads, grid, span
         hd = dim // heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -147,15 +158,17 @@ class EncoderAttention(nn.Module):
         hd = C // self.heads
         h, w = self.grid
         q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
-        # One (B*, heads, N, N) buffer: logits, bias, then the softmax in
-        # place (exp(l - max) / sum, as torch.softmax computes it).
-        logits = (q @ k.transpose(-1, -2)).div_(math.sqrt(hd))
-        bias_h, bias_w = _rel_pos_bias((h, w), self.rel_pos_h, self.rel_pos_w, q, self.heads)
-        logits.view(B, self.heads, h, w, h, w).add_(bias_h).add_(bias_w)
-        logits.sub_(logits.amax(-1, keepdim=True)).exp_()
-        logits.div_(logits.sum(-1, keepdim=True))
-        out = (logits @ v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out)
+        with annotate(self.span):
+            # One (B*, heads, N, N) buffer: logits, bias, then the softmax in
+            # place (exp(l - max) / sum, as torch.softmax computes it).
+            logits = (q @ k.transpose(-1, -2)).div_(math.sqrt(hd))
+            count("sam.attn_logit_bytes", logits.numel() * logits.element_size())
+            bias_h, bias_w = _rel_pos_bias((h, w), self.rel_pos_h, self.rel_pos_w, q, self.heads)
+            logits.view(B, self.heads, h, w, h, w).add_(bias_h).add_(bias_w)
+            logits.sub_(logits.amax(-1, keepdim=True)).exp_()
+            logits.div_(logits.sum(-1, keepdim=True))
+            out = logits @ v
+        return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
 class WindowBlock(nn.Module):
@@ -164,7 +177,9 @@ class WindowBlock(nn.Module):
         super().__init__()
         self.window = window
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = EncoderAttention(dim, heads, (window, window) if window else (grid, grid))
+        self.attn = (EncoderAttention(dim, heads, (window, window), "g4s:sam.attn.window")
+                     if window else
+                     EncoderAttention(dim, heads, (grid, grid), "g4s:sam.attn.global"))
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MLPBlock(dim, 4 * dim)
 
@@ -184,7 +199,10 @@ class WindowBlock(nn.Module):
         else:
             att = self.attn(h.reshape(B, H * W, C)).reshape(B, H, W, C)
         x = x + att
-        return x + self.mlp(self.norm2(x))
+        h = self.norm2(x)
+        with annotate("g4s:sam.mlp"):
+            h = self.mlp(h)
+        return x + h
 
 
 class PatchEmbed(nn.Module):
@@ -211,8 +229,10 @@ class ImageEncoder(nn.Module):
             nn.Conv2d(cfg.encoder_dim, D, 1, bias=False), LayerNorm2d(D),
             nn.Conv2d(D, D, 3, padding=1, bias=False), LayerNorm2d(D))
 
+    @annotated("g4s:sam.encode")
     def forward(self, x):
         """x: (B, H, W, 3) → (B, H/p, W/p, embed_dim)."""
+        count("sam.images", x.shape[0])
         h = self.patch_embed(x)
         pos = self.pos_embed
         if h.shape[1:3] != pos.shape[1:3]:
