@@ -49,9 +49,11 @@ Phases (any failure exits non-zero and prints no result line):
      TrainConfig's production defaults; 30 Trainer.step() calls with a
      densify window (densify at 10, 20, 30), then 5 with lambda_dist > 0;
      finite losses, loss down and PSNR up over the view cycle, and exactly
-     one B1 and one B2 launch per step; no pair outside its reach box (B1
-     and B2) on the trained scene; the binning kernel chain vs the plain
-     binning on the first step's scene (dead slots included);
+     one B1, one B2 and one launch of each preprocess kernel per step; no
+     pair outside its reach box (B1 and B2) on the trained scene; the
+     binning kernel chain vs the plain binning, and both preprocess kernels
+     vs their plain forms (PRE_TOL), on the first step's scene (dead slots
+     included);
   9. training timings: the median step and its split by the program's
      spans (step, preprocess, binning, losses, backward, Adam, the blocking
      calls; densify); at the training shape (the first step's scene): B1's
@@ -229,6 +231,13 @@ FLIP_FRAC = 1e-3
 GRAD_TOL = 2e-2
 # render(backend="cuda") gradients vs render(backend="tiled") (autograd).
 CHAIN_TOL = 1e-2
+# The preprocess kernels vs their plain forms (preprocess_cuda.forward_plain,
+# backward_plain) on the same card tensors: every forward output but the
+# colour bit for bit (the geometry rounds as the plain form, op for op); the
+# colour and each gradient group within PRE_TOL * max|plain| (fused
+# multiply-adds and another order of summation in the SH colour and the
+# backward); the centre offset's gradient equal.
+PRE_TOL = 1e-5
 DEVICE = "cuda"
 # (splats, width, height) of phases 3, 4, 5 and 7.
 CHECK_SHAPE = (8000, 256, 192)
@@ -558,6 +567,50 @@ def binning_bound(P, E):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+PRE_FIELDS = ("T", "center", "normal", "rgb", "radius", "depth", "valid")
+PRE_GRADS = ("xyz", "scaling", "rotation_raw", "f_dc", "f_rest", "colors", "center_offset")
+
+
+def preprocess_vs_plain(tag, cam, scene, seed):
+    """Both preprocess kernels on the main path's inputs (the scene's
+    activations and two SH tensors, a seeded centre offset, seeded
+    cotangents) against their plain forms, each kernel launched once."""
+    import torch
+
+    from g4splat_torch.ops import preprocess_cuda as pc
+
+    P, dev, degree = scene.capacity, scene.device, scene.active_sh_degree
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    off = 0.7 * torch.randn((P, 2), generator=gen, device=dev)
+    args = (scene.xyz, scene.scaling(), scene.rotation_raw, scene.f_dc, scene.f_rest, None,
+            off, scene.opacity().reshape(-1), cam.w2c, cam.world2pix)
+    geom = (degree, 1.0, cam.width, cam.height)
+    cots = tuple(torch.randn(shape, generator=gen, device=dev)
+                 for shape in ((P, 3, 3), (P, 2), (P, 3), (P, 3)))
+    pc.PREPROCESS_FWD.launches = pc.PREPROCESS_BWD.launches = 0
+    got = pc.forward_cuda(*args, *geom)
+    ref = pc.forward_plain(*args, *geom)
+    bargs = args[:6] + args[8:] + (ref[-1],) + cots + (True, degree, 1.0)
+    g_got = pc.backward_cuda(*bargs)
+    g_ref = pc.backward_plain(*bargs)
+    torch.cuda.synchronize()
+    launches = (pc.PREPROCESS_FWD.launches, pc.PREPROCESS_BWD.launches)
+    differ = [k for k, a, b in zip(PRE_FIELDS, got, ref) if k != "rgb" and not torch.equal(a, b)]
+    rgb_gap = float((got[3] - ref[3]).abs().max()) / float(ref[3].abs().max())
+    check(not differ and rgb_gap <= PRE_TOL and launches[0] == 1,
+          f"{tag}: preprocess forward kernel vs plain ({P} slots, {int(ref[-1].sum())} valid, "
+          f"SH {degree}, an offset): every field but rgb bit for bit"
+          + (f" (differs in {', '.join(differ)})" if differ else "")
+          + f", rgb max|diff| / max|plain| {rgb_gap:.3e} (<= {PRE_TOL}); launches {launches[0]}")
+    gaps = {k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for k, a, b in zip(PRE_GRADS, g_got, g_ref) if b is not None}
+    off_equal = torch.equal(g_got[-1], g_ref[-1])
+    check(all(v <= PRE_TOL for v in gaps.values()) and off_equal and launches[1] == 1,
+          f"{tag}: preprocess backward kernel vs plain, max|diff| / max|plain| per group "
+          + " ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (<= {PRE_TOL}); center_offset equal {off_equal}; launches {launches[1]}")
+
+
 def compare_maps(tag, got, ref, quiet=False):
     """Grade the kernel's maps against the plain version's. Prints (unless
     quiet), per map, the largest |d| over all pixels and over the agreeing
@@ -844,8 +897,7 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
     end of the one before (device time, host gaps included)."""
     import torch
 
-    from g4splat_torch.ops.rasterize import postprocess, render
-    from g4splat_torch.ops.rasterize_common import preprocess
+    from g4splat_torch.ops.rasterize import _preprocess, postprocess, render
     from g4splat_torch.ops.rasterize_cuda import rasterize_entries, splat_table
     from g4splat_torch.ops.rasterize_tiled import bin_splats
 
@@ -861,9 +913,7 @@ def time_render(tag, cam, scene, cfg, need_aux, reps=5):
         total = (time.perf_counter() - t0) * 1e3
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         ev[0].record()
-        prep = preprocess(cam, scene.xyz, scene.scaling(), scene.rotation_raw,
-                          scene.opacity(), scene.features(), scene.active_sh_degree,
-                          config=cfg)
+        prep = _preprocess(cam, scene, cfg, None, None)
         ev[1].record()
         b = bin_splats(prep, W, H, max_tiles_per_splat=cfg.max_tiles_per_splat,
                        ellipse_prune=cfg.tile_ellipse_prune)
@@ -3719,7 +3769,8 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     try:
-        from g4splat_torch.ops import cuda_build, rasterize_cuda, rasterize_cuda_bwd
+        from g4splat_torch.ops import (cuda_build, preprocess_cuda, rasterize_cuda,
+                                       rasterize_cuda_bwd)
         from g4splat_torch.core.cameras import lookat_camera
         from g4splat_torch.io.ply import load_gaussian_ply, save_gaussian_ply
         from g4splat_torch.ops.rasterize import render
@@ -3913,9 +3964,12 @@ def main():
         b8, t8 = kernel_inputs(camera_at(cams8, 0), trainer.scene)
         binning_vs_plain("training first step", camera_at(cams8, 0), trainer.scene,
                          variants=(BIN_VARIANTS[0], BIN_VARIANTS[2]))
+        preprocess_vs_plain("training first step", camera_at(cams8, 0), trainer.scene, 14)
     torch.cuda.synchronize()
-    rasterize_cuda.RASTERIZE_FWD.launches = 0
-    rasterize_cuda_bwd.RASTERIZE_BWD.launches = 0
+    counters = (rasterize_cuda.RASTERIZE_FWD, rasterize_cuda_bwd.RASTERIZE_BWD,
+                preprocess_cuda.PREPROCESS_FWD, preprocess_cuda.PREPROCESS_BWD)
+    for k in counters:
+        k.launches = 0
     hist, step_ms, per_step = [], [], set()
     for i in range(n_steps + n_dist):
         if i == n_steps:
@@ -3931,22 +3985,19 @@ def main():
             print(f"  step {it}: screen-gradient statistic before this step, quantiles "
                   f"50/90/99/99.9 % " + " ".join(f"{float(v):.2e}" for v in q)
                   + f", max {float(g.max()):.2e}")
-        before = (rasterize_cuda.RASTERIZE_FWD.launches,
-                  rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+        before = tuple(k.launches for k in counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = trainer.step()
         torch.cuda.synchronize()
         step_ms.append(((time.perf_counter() - t0) * 1e3, densifies, i >= n_steps))
-        per_step.add((rasterize_cuda.RASTERIZE_FWD.launches - before[0],
-                      rasterize_cuda_bwd.RASTERIZE_BWD.launches - before[1]))
+        per_step.add(tuple(k.launches - b for k, b in zip(counters, before)))
         hist.append(m)
         if densifies:
             print(f"  step {it}: densify/prune n_alive {alive} -> "
                   f"{int(trainer.scene.num_alive)} (capacity {trainer.scene.capacity})")
     torch.cuda.synchronize()
-    launches8 = (rasterize_cuda.RASTERIZE_FWD.launches,
-                 rasterize_cuda_bwd.RASTERIZE_BWD.launches)
+    launches8 = tuple(k.launches for k in counters)
     peak8 = torch.cuda.max_memory_allocated() / 2**30
     for k in range(0, n_steps + n_dist, n_views):
         ms = hist[k:k + n_views]
@@ -3954,10 +4005,11 @@ def main():
               + " ".join(f"{x['loss']:.5f}" for x in ms)
               + f"; psnr " + " ".join(f"{x['psnr']:.3f}" for x in ms))
     n_total = n_steps + n_dist
-    check(launches8 == (n_total, n_total) and per_step == {(1, 1)},
-          f"training launched B1 {launches8[0]} and B2 {launches8[1]} times over "
-          f"{n_total} steps, (B1, B2) per step {sorted(per_step)} (one each per step "
-          f"expected)")
+    check(launches8 == (n_total,) * 4 and per_step == {(1, 1, 1, 1)},
+          f"training launched B1 {launches8[0]}, B2 {launches8[1]} and the preprocess "
+          f"forward and backward {launches8[2]} and {launches8[3]} times over {n_total} "
+          f"steps, (B1, B2, forward, backward) per step {sorted(per_step)} (one each per "
+          f"step expected)")
     check(all(np.isfinite(x["loss"]) and np.isfinite(x["psnr"]) for x in hist),
           "every training loss and PSNR is finite")
     # Each run of n_views steps visits every view once (a permutation), so the

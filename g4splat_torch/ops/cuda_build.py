@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("rasterize_fwd", "rasterize_bwd", "attention_fwd", "binning")
+SOURCES = ("rasterize_fwd", "rasterize_bwd", "attention_fwd", "binning", "preprocess")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -23,8 +23,9 @@ import torch
 from g4splat_torch.core.cameras import Camera
 from g4splat_torch.core.geometry import depth_to_normal
 from g4splat_torch.models.gaussians import GaussianScene
+from g4splat_torch.ops.preprocess_cuda import camera_requires_grad, preprocess_splats
 from g4splat_torch.ops.rasterize_common import Preprocessed, RenderConfig, preprocess
-from g4splat_torch.utils.profiling import annotate
+from g4splat_torch.utils.profiling import annotate, count
 
 
 def render(
@@ -49,18 +50,7 @@ def render(
     dev = scene.device
 
     with annotate("g4s:render.preprocess"):
-        prep = preprocess(
-            camera,
-            xyz=scene.xyz,
-            scaling=scene.scaling(),
-            rotation_raw=scene.rotation_raw,
-            opacity=scene.opacity(),
-            features=scene.features(),
-            sh_degree=scene.active_sh_degree,
-            colors=override_color,
-            config=config,
-            center_offset=center_offset,
-        )
+        prep = _preprocess(camera, scene, config, center_offset, override_color)
     with annotate("g4s:sync.bg"):
         bg = torch.as_tensor(config.bg, dtype=torch.float32).to(dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
@@ -110,6 +100,23 @@ def render(
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return postprocess(camera, config, prep, maps, n_dropped, n_overflow)
+
+
+def _preprocess(camera: Camera, scene: GaussianScene, config: RenderConfig,
+                center_offset: Optional[torch.Tensor],
+                override_color: Optional[torch.Tensor]) -> Preprocessed:
+    """The one choice of preprocess path, by what the inputs are: CUDA
+    tensors run the kernels of `preprocess_cuda` (every backend), CPU tensors
+    and a camera that requires grad (the kernels give it none) the torch
+    chain of `rasterize_common.preprocess`."""
+    count("render.preprocesses")
+    kw = dict(xyz=scene.xyz, scaling=scene.scaling(), rotation_raw=scene.rotation_raw,
+              opacity=scene.opacity(), sh_degree=scene.active_sh_degree,
+              colors=override_color, config=config, center_offset=center_offset)
+    if scene.xyz.is_cuda and not camera_requires_grad(camera):
+        count("render.preprocesses_kernel")
+        return preprocess_splats(camera, f_dc=scene.f_dc, f_rest=scene.f_rest, **kw)
+    return preprocess(camera, features=scene.features(), **kw)
 
 
 def postprocess(camera: Camera, config: RenderConfig, prep: Preprocessed,

@@ -535,3 +535,219 @@ def test_binning_kernel_with_zero_entries(cuda):
         got, _ = binning_equal(prep, 100, 70)
         assert got.gauss_id.numel() == 0 and not got.tile_count.any()
         assert not got.tile_start.any()
+
+
+# --------------------------------------------------------------- preprocess
+
+# The preprocess kernels (csrc/preprocess.cu) against their plain forms and
+# the torch chain. Forward, against the plain form on the same card tensors:
+# every field but the colour bit for bit (the geometry rounds as the plain
+# form, op for op), the SH colour within PRE_TOL · max|plain rgb| at every
+# slot (it is summed with fused multiply-adds). Against the torch chain
+# (rasterize_common.preprocess), which rounds in another order (einsum,
+# reductions, rsqrt): the same tolerance at all but PRE_FLIP of the slots.
+# There the extent's half_sq = c² − f·Tu·Tu leaves ~25 px² out of two terms
+# as large as the pixel coordinate squared (~1e5 px²), so the chain's other
+# rounding moves an extent by up to ~1e-3 px and its ceil (radius, valid)
+# flips at up to ~1e-3 of the slots; a normal flips where p_view lies within
+# rounding of its plane, and a near-degenerate conic amplifies the rounding
+# of its centre by |Tw2² / dist|.
+PRE_TOL = 1e-5
+PRE_FLIP = 1e-3
+# Backward, per gradient group, ||kernel - ref|| / ||ref||. Against the plain
+# form: T and the conic are recomputed bit for bit, the rest contracts into
+# fused multiply-adds and associates otherwise, a few ulp of the group:
+# PRE_GRAD_TOL. Against autograd of the torch chain, which rounds T, the conic
+# and the centre otherwise: train_room's own gradient limit, PRE_CHAIN_TOL.
+# The centre offset's gradient is the centre's cotangent where valid: equal.
+PRE_GRAD_TOL = 1e-5
+PRE_CHAIN_TOL = 1e-3
+PRE_FIELDS = ("T", "center", "normal", "rgb", "radius", "depth", "valid")
+
+
+def pre_scene(cuda, name):
+    """(scene, camera, sh degree) of a preprocess check scene."""
+    import chip_smoke
+
+    if name == "training":
+        xyz, cols, scales, quats = chip_smoke.scene_arrays(1_200_000, 11)
+        scene = GaussianScene.from_points(xyz, cols, scales=scales, quats=quats,
+                                          capacity=2_400_000, initial_opacity=0.5,
+                                          device=cuda)
+        cam = lookat_camera([0, -0.8, -6.5], [0, 0, 0], [0, -1, 0], fx=400.0, fy=400.0,
+                            width=512, height=384, device=cuda)
+        degree = 3
+    else:
+        n, seed, spread, z, w, h = BIN_SCENES[name]
+        rng = np.random.RandomState(seed)
+        scene = GaussianScene.from_points(
+            rng.uniform(-spread, spread, (n, 3)), rng.rand(n, 3),
+            scales=np.exp(rng.uniform(-3.5, -2.0, n)), quats=rng.randn(n, 4),
+            initial_opacity=0.7, capacity=n + 1024, device=cuda)      # dead slots
+        cam = lookat_camera([0, 0, z], [0, 0, 0], [0, -1, 0], fx=220.0, fy=220.0, width=w,
+                            height=h, device=cuda)
+        degree = {"spread": 0, "deep-overlap": 1, "near": 2, "ragged": 3}[name]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    f_dc = scene.f_dc + 0.8 * torch.randn(scene.f_dc.shape, generator=gen, device=cuda)
+    f_rest = 0.2 * torch.randn(scene.f_rest.shape, generator=gen, device=cuda)
+    return scene.replace(f_dc=f_dc, f_rest=f_rest, active_sh_degree=degree), cam, degree
+
+
+def pre_args(scene, cam, degree, offset, override):
+    P, dev = scene.capacity, scene.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    off = 0.7 * torch.randn((P, 2), generator=gen, device=dev) if offset else None
+    col = torch.rand((P, 3), generator=gen, device=dev) if override else None
+    args = (scene.xyz, scene.scaling(), scene.rotation_raw, scene.f_dc, scene.f_rest, col, off,
+            scene.opacity().reshape(-1), cam.w2c, cam.world2pix)
+    return args, (degree, 1.0, cam.width, cam.height)
+
+
+def fields_agree(got, ref, flip):
+    """Each field's share of slots off by more than PRE_TOL · max|ref| (any
+    difference for radius and valid), which must stay at or under `flip`."""
+    shares = {}
+    for k, a, b in zip(PRE_FIELDS, got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if k in ("radius", "valid"):
+            off = a != b
+        else:
+            off = (a - b).abs() > PRE_TOL * float(b.abs().max())
+            off = off.reshape(off.shape[0], -1).any(1)
+        shares[k] = float(off.float().mean())
+        assert shares[k] <= flip, (k, shares[k], int(off.sum()))
+    return shares
+
+
+PRE_CASES = [("spread", False, False), ("deep-overlap", True, False), ("near", True, True),
+             ("ragged", False, True), ("training", True, False)]
+
+
+@pytest.mark.parametrize("name,offset,override", PRE_CASES)
+def test_preprocess_kernel_matches_plain_and_chain(cuda, name, offset, override):
+    from g4splat_torch.ops import preprocess_cuda as pc
+
+    scene, cam, degree = pre_scene(cuda, name)
+    args, geom = pre_args(scene, cam, degree, offset, override)
+    before = pc.PREPROCESS_FWD.launches
+    got = pc.forward_cuda(*args, *geom)
+    assert pc.PREPROCESS_FWD.launches == before + 1
+    plain = pc.forward_plain(*args, *geom)
+    torch.cuda.synchronize()
+    gaps = fields_agree(got, plain, 0.0)
+    same = {k: bool(torch.equal(a, b)) for k, a, b in zip(PRE_FIELDS, got, plain)}
+    print(f"\n  {name}: kernel vs plain, shares of slots off {gaps}; bit-identical {same}")
+    assert all(v for k, v in same.items() if k != "rgb"), same
+    x, s, q, dc, rest, col, off, opa, w2c, M = args
+    ch = preprocess(cam, x, s, q, opa[:, None], torch.cat([dc, rest], 1), degree, colors=col,
+                    center_offset=off)
+    chain = tuple(getattr(ch, k) for k in PRE_FIELDS)
+    print(f"  {name}: kernel vs chain {fields_agree(got, chain, PRE_FLIP)}")
+    assert int(got[-1].sum()) > 0.3 * int(scene.num_alive)
+
+
+def group_gaps(got, ref):
+    """||got - ref|| / ||ref|| per group given; a group that is zero in ref
+    (f_rest at degree 0) reads max|got|, so it has to be zero too."""
+    names = ("xyz", "scaling", "rotation_raw", "f_dc", "f_rest", "colors", "center_offset")
+    return {k: float((a - b).norm()) / float(b.norm()) if float(b.norm()) > 0
+            else float(a.abs().max()) for k, a, b in zip(names, got, ref) if b is not None}
+
+
+@pytest.mark.parametrize("name,offset,override", PRE_CASES)
+def test_preprocess_backward_kernel_matches_plain_and_autograd(cuda, name, offset, override):
+    """Seeded cotangents, handed over as B2 hands them (column slices of one
+    (P, 18) table), through the kernel, the plain form and autograd of the
+    torch chain."""
+    from g4splat_torch.ops import preprocess_cuda as pc
+
+    scene, cam, degree = pre_scene(cuda, name)
+    args, geom = pre_args(scene, cam, degree, offset, override)
+    P = scene.capacity
+    valid = pc.forward_plain(*args, *geom)[-1]
+    table = torch.randn((P, 18), generator=torch.Generator(device=cuda).manual_seed(7),
+                        device=cuda)
+    cots = (table[:, 0:9].reshape(P, 3, 3), table[:, 9:11], table[:, 12:15], table[:, 15:18])
+    x, s, q, dc, rest, col, off, opa, w2c, M = args
+    bargs = (x, s, q, dc, rest, col, w2c, M, valid) + cots + (offset, degree, 1.0)
+    before = pc.PREPROCESS_BWD.launches
+    got = pc.backward_cuda(*bargs)
+    assert pc.PREPROCESS_BWD.launches == before + 1
+    plain = pc.backward_plain(*bargs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert (a is None) == (b is None)
+    gaps = group_gaps(got, plain)
+    print(f"\n  {name}: kernel vs plain {gaps}")
+    assert all(v <= PRE_GRAD_TOL for v in gaps.values()), gaps
+    if offset:
+        assert torch.equal(got[-1], plain[-1])
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in (x, s, q, dc, rest, col, off)]
+    ch = preprocess(cam, *leaves[:3], opa[:, None], torch.cat(leaves[3:5], 1), degree,
+                    colors=leaves[5], center_offset=leaves[6])
+    loss = sum((o * c).sum() for o, c in zip((ch.T, ch.center, ch.rgb, ch.normal), cots))
+    want = [i for i, t in enumerate(got) if t is not None]
+    auto = torch.autograd.grad(loss, [leaves[i] for i in want])
+    ref = [None] * 7
+    for i, g in zip(want, auto):
+        ref[i] = g
+    gaps = group_gaps(got, ref)
+    print(f"  {name}: kernel vs autograd of the chain {gaps}")
+    assert all(v <= PRE_CHAIN_TOL for v in gaps.values()), gaps
+
+
+def test_render_on_the_card_runs_the_preprocess_kernels(cuda):
+    """render() on CUDA tensors runs both kernels once per call and step;
+    a camera that requires grad takes the torch chain and gets its gradient."""
+    from g4splat_torch.core.cameras import camera_at
+    from g4splat_torch.ops import preprocess_cuda as pc
+
+    scene, cam = sphere_on(cuda), camera_at(ring_on(cuda), 0)
+    params = {k: getattr(scene, k).clone().requires_grad_(True) for k in ("xyz", "f_dc")}
+    counts = pc.PREPROCESS_FWD.launches, pc.PREPROCESS_BWD.launches
+    render(cam, scene.replace(**params), backend="cuda")["render"].sum().backward()
+    assert (pc.PREPROCESS_FWD.launches, pc.PREPROCESS_BWD.launches) == (counts[0] + 1,
+                                                                      counts[1] + 1)
+    cam_g = cam.replace(w2c=cam.w2c.clone().requires_grad_(True))
+    render(cam_g, scene, backend="cuda")["render"].sum().backward()
+    assert (pc.PREPROCESS_FWD.launches, pc.PREPROCESS_BWD.launches) == (counts[0] + 1,
+                                                                      counts[1] + 1)
+    assert float(cam_g.w2c.grad.abs().sum()) > 0
+
+
+def test_training_step_before_and_after_the_preprocess_kernels(cuda, monkeypatch):
+    """train_room's problem and check (perfbench's train_2dgs driver: three
+    steps from iteration 2397, the loss, the first gradient's and the
+    change's norms per leaf) with the torch chain forced (a camera taken as
+    requiring grad) and with the kernels: within train_room's own limits."""
+    import json
+    from pathlib import Path
+
+    from g4splat_torch.ops import preprocess_cuda as pc
+    from g4splat_torch.ops import rasterize
+    from perfbench.drivers.train_2dgs import TrainCell, compare
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "perfbench/configs/room_2dgs.json").read_text())
+    traffic = json.loads((root / "perfbench/workloads/train_window.json").read_text())
+    got = {}
+    for path in ("chain", "kernel"):
+        with monkeypatch.context() as m:
+            if path == "chain":
+                m.setattr(rasterize, "camera_requires_grad", lambda cam: True)
+            before = pc.PREPROCESS_FWD.launches, pc.PREPROCESS_BWD.launches
+            cell = TrainCell(config, traffic, 2147483901, cuda)
+            ran = (pc.PREPROCESS_FWD.launches - before[0], pc.PREPROCESS_BWD.launches - before[1])
+        got[path] = cell.got
+        steps = traffic["check_steps"] + 1
+        if path == "chain":
+            assert ran == (0, 0)
+        else:
+            assert ran[0] >= steps and ran[1] >= steps, ran
+        del cell
+        torch.cuda.empty_cache()
+    checks = compare(got["kernel"], got["chain"])
+    print("\n  kernel vs chain, train_room's check: " + str(checks))
+    for name, v in checks:
+        assert v <= traffic["limits"][name], (name, v)
